@@ -14,7 +14,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from allpathslg_tpu_torch.align.lookup import SeedIndex
 from allpathslg_tpu_torch.dtypes.devcache import DeviceBatches
+from allpathslg_tpu_torch.graph.pathsdb import KmerPlacement, ReadPaths
+from allpathslg_tpu_torch.graph.unipath import UniGraph, Unipaths
 from allpathslg_tpu_torch.kmer.count import CountedKmers
 from allpathslg_tpu_torch.ops.join import HashedTable
 
@@ -74,3 +77,50 @@ def device_batches(batch: int, L: int, n_real: int, word_arrays, nmask,
                for p in qpal]
     db.lengths = [array(np.asarray(x, np.int32), device) for x in lengths]
     return db
+
+
+def seed_index(K: int, hash, bucket_starts, shift: int, offsets, contig_lens,
+               packed=None, contig=None, pos=None, is_rc=None, *,
+               device) -> SeedIndex:
+    """A reference align.lookup.SeedIndex's fields -> the port's SeedIndex
+    (packed layout when `packed` is given, else the 3-array layout)."""
+    def opt(a, dtype):
+        return None if a is None else array(np.asarray(a, dtype), device)
+
+    return SeedIndex(
+        K=int(K), hash=words([hash], device)[0],
+        bucket_starts=array(np.asarray(bucket_starts, np.int32), device),
+        shift=int(shift), contig=opt(contig, np.int32),
+        pos=opt(pos, np.int32), is_rc=opt(is_rc, bool),
+        offsets=array(np.asarray(offsets, np.int32), device),
+        contig_lens=np.asarray(contig_lens, np.int32),
+        packed=None if packed is None else words([packed], device)[0])
+
+
+def unipaths(bases, offsets, kmer_counts, mean_cov=None) -> Unipaths:
+    """A reference graph.unipath.Unipaths' arrays -> the port's (host)."""
+    return Unipaths(bases=np.asarray(bases), offsets=np.asarray(offsets),
+                    kmer_counts=np.asarray(kmer_counts),
+                    mean_cov=None if mean_cov is None
+                    else np.asarray(mean_cov))
+
+
+def unigraph(a, fa, b, fb) -> UniGraph:
+    """A reference graph.unipath.UniGraph's arrays -> the port's (host)."""
+    return UniGraph(np.asarray(a), np.asarray(fa), np.asarray(b),
+                    np.asarray(fb))
+
+
+def read_paths(offsets, uid, fwd, enter, leave, pos) -> ReadPaths:
+    """A reference graph.pathsdb.ReadPaths' arrays -> the port's (host)."""
+    return ReadPaths(*(np.asarray(x) for x in
+                       (offsets, uid, fwd, enter, leave, pos)))
+
+
+def kmer_placement(K: int, table, uid, upos, urc, *,
+                   device) -> KmerPlacement:
+    """A reference graph.pathsdb.KmerPlacement -> the port's: the table's
+    uint32 words become int64 tensors on `device`."""
+    return KmerPlacement(K=int(K), table=words(table, device),
+                         uid=np.asarray(uid), upos=np.asarray(upos),
+                         urc=np.asarray(urc))

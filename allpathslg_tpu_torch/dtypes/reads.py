@@ -8,7 +8,7 @@
 
 As in the reference, batch_from_codes returns a numpy-backed batch; a
 consumer moves the arrays to its device when it first needs them. The
-reference's string helpers come with the I/O modules that use them.
+string helpers are the two that io/fasta and io/efasta use.
 """
 
 from __future__ import annotations
@@ -19,6 +19,11 @@ from typing import Any, Optional
 import numpy as np
 
 PAD_CODE = 4
+_CODE_OF = np.full(256, PAD_CODE, dtype=np.uint8)
+for i, c in enumerate("ACGT"):
+    _CODE_OF[ord(c)] = i
+    _CODE_OF[ord(c.lower())] = i
+_BASE_OF = np.array(list("ACGTN"), dtype="U1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,3 +74,11 @@ def batch_from_codes(codes: np.ndarray, lengths: np.ndarray,
     if quals is not None:
         q = np.where(mask, np.asarray(quals, dtype=np.uint8), np.uint8(0))
     return ReadBatch(codes, lengths, q)
+
+
+def codes_from_string(s: str) -> np.ndarray:
+    return _CODE_OF[np.frombuffer(s.encode(), dtype=np.uint8)]
+
+
+def string_from_codes(codes: np.ndarray) -> str:
+    return "".join(_BASE_OF[np.clip(np.asarray(codes), 0, 4)])

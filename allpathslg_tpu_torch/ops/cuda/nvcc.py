@@ -1,0 +1,55 @@
+"""Build a hand-written CUDA source of the port into a plain-C shared
+library with nvcc, for Hopper (sm_90a), at first use.
+
+Each kernel module (sort_cuda, banded_cuda) names its source under
+`allpathslg_tpu_torch/csrc/` and binds the library with ctypes. The
+library lands in `build/kernels/` (gitignored) under a name that carries
+a hash of the source and the flags, so an edit rebuilds; the compile goes
+to a temporary name and is renamed into place, so a concurrent or
+interrupted build never leaves a bad file. A failed build raises.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return path
+
+
+def build(source: str) -> tuple:
+    """Compile `csrc/<source>` if its library is missing: (path, seconds
+    spent; 0.0 when the library was already built)."""
+    src_path = CSRC / source
+    src = src_path.read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{src_path.stem}_{tag}.so"
+    if out.exists():
+        return out, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(src_path)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src_path}:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0

@@ -3,9 +3,9 @@
 
 The kernel is `allpathslg_tpu_torch/csrc/radix_sort.cu`, compiled with
 `nvcc` for `sm_90a` into a plain-C shared library under `build/kernels/`
-at first use and bound with ctypes. `radix_sort` is the wrapper: a key
-tensor on the CPU goes to `radix_sort_plain`, the plain PyTorch version of
-the same contract; a key tensor on a CUDA device launches the kernel, and
+at first use (ops/cuda/nvcc.py) and bound with ctypes. `radix_sort` is the
+wrapper: a key tensor on the CPU goes to `radix_sort_plain`, the plain
+PyTorch version of the same contract; a key tensor on a CUDA device launches the kernel, and
 a kernel that does not build or launch raises. There is no fallback.
 
 Contract (both versions): `keys` is int64 [n] holding an unsigned key of
@@ -20,20 +20,13 @@ two words by composing passes (ops/sort.py).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
+from allpathslg_tpu_torch.ops.cuda import nvcc
+
 _SIGN = -(1 << 63)          # int64 with only the top bit set
-_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "radix_sort.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_SOURCE = "radix_sort.cu"
 
 _lib = None
 _launches = 0
@@ -102,36 +95,9 @@ def _radix_sort_cuda(keys: torch.Tensor, key_bits: int):
     return (keys_b, idx_b) if in_b.value else (keys_a, idx_a)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("radix_sort: nvcc not found (set CUDA_HOME)")
-    return path
-
-
 def build() -> tuple:
-    """Compile the kernel if its library is missing: (path, seconds spent).
-    The library name carries a hash of the source and flags, so an edit
-    rebuilds; the compile goes to a temporary name and is renamed into
-    place, so a concurrent or interrupted build never leaves a bad file."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libradix_sort_{tag}.so"
-    if out.exists():
-        return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(_SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {_SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0
+    """Compile the kernel if its library is missing: (path, seconds spent)."""
+    return nvcc.build(_SOURCE)
 
 
 def library():

@@ -1,4 +1,4 @@
-"""Pipeline stages, the error-correction front of the contig slice (port of
+"""Pipeline stages, the contig slice and the fragment alignment (port of
 allpathslg_tpu/pipeline/stages.py):
 
   validate_inputs     (ref: ValidateAllPathsInputs)
@@ -6,31 +6,43 @@ allpathslg_tpu/pipeline/stages.py):
   precorrect          (ref: FindErrors phase 1 / PreCorrect)
   find_errors         (ref: FindErrors phase 2)
   clean_reads         (ref: CleanCorrectedReads)
+  fill_fragments      (ref: FillFragments)
+  unipaths            (ref: CommonPather + Unipather at K=96, localization,
+                       cleanup)
+  report              (ref: reporting/ BasicAssemblyStats -> assembly.report)
+  align_frags         (ref: AlignPairsToHyper for the fragment library)
 
-Each stage writes the same named artifacts to the run directory as the
-reference, byte for byte, and resumes from the same manifest. The stages
-run on the torch device the Pipeline is given; the read set is uploaded
-once and stays resident on it across the EC stages (dtypes/devcache).
+`run_contig_slice` runs the first eight in order. Each stage writes the
+same named artifacts to the run directory as the reference, byte for
+byte, and resumes from the same manifest. The stages run on the torch
+device the Pipeline is given; the read set is uploaded once and stays
+resident on it across the EC stages (dtypes/devcache).
 
-Not ported yet (see ROADMAP.md): fill_fragments, unipaths, report and the
-later stages; and the options that lead off this slice raise
-NotImplementedError: a multi-device mesh (n_devices > 1), profile_dir,
-check_mode, evaluation="CHEAT" and jump libraries in validate_inputs.
+Not ported yet (see ROADMAP.md): jump_ec, align_jumps, make_scaffolds,
+long_jump_scaffolds, patch_gaps, long_read_patch, assisted, polish,
+clean_final, finalize, submission_prep, evaluate and `run_full`; and the
+options that lead off this slice raise NotImplementedError: a
+multi-device mesh (n_devices > 1), profile_dir, check_mode,
+evaluation="CHEAT" and jump libraries in validate_inputs.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, List
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
 
+from allpathslg_tpu_torch.dtypes import packed as _packed
 from allpathslg_tpu_torch.dtypes.devcache import DeviceBatches
 from allpathslg_tpu_torch.dtypes.reads import batch_from_codes
 from allpathslg_tpu_torch.ec import precorrect as pc
 from allpathslg_tpu_torch.ec import spectrum_ec as sec
+from allpathslg_tpu_torch.eval import stats
+from allpathslg_tpu_torch.graph import unipath
+from allpathslg_tpu_torch.io import fasta as fio
 from allpathslg_tpu_torch.kmer import count as kcount
 from allpathslg_tpu_torch.kmer import spectrum as kspec
 from allpathslg_tpu_torch.ops import join
@@ -421,6 +433,350 @@ class Pipeline:
             return {"n_reads_kept": kept}
 
         return self.run_stage("clean_reads", ih, ["frag_reads_corr.npz"], fn)
+
+    def fill_fragments(self):
+        """Merge overlapping fragment pairs into filled super-reads
+        (ref: FillFragments); unfillable pairs pass through unchanged."""
+        cfg, rd = self.cfg, self.rd
+        from allpathslg_tpu_torch.asm import fill as afill
+
+        ih = rd.hash_of("fill", self._art_hash("frag_reads_corr"))
+
+        def fn():
+            # the EC chain is done with the resident read cache: free its
+            # device memory before the fill/count stages allocate theirs
+            self._read_cache.clear()
+            a = rd.load_arrays("frag_reads_corr", mmap=True)
+            codes, lengths, quals = a["codes"], a["lengths"], a["quals"]
+            pairs = a.get("pairs")
+            if pairs is None or not len(pairs):
+                rd.save_arrays("filled_reads", codes=codes, lengths=lengths,
+                               quals=quals)
+                return {"n_filled": 0, "n_passthrough": codes.shape[0]}
+            fcfg = afill.FillConfig()
+            out_len = fcfg.insert_hi
+            P = len(pairs)
+            B = max(1, cfg.batch_reads // 4)
+            p_pad, n_real_p = _pad_batch(pairs, B, 0)
+            m_codes = np.empty((len(p_pad), out_len), np.uint8)
+            m_quals = np.empty((len(p_pad), out_len), np.uint8)
+            m_len = np.empty(len(p_pad), np.int32)
+            m_ok = np.empty(len(p_pad), bool)
+            dev = self.device
+
+            def lens(idx):
+                return torch.from_numpy(lengths[idx]).to(dev)
+
+            for s in range(0, len(p_pad), B):
+                e = s + B
+                pp = p_pad[s:e]
+                c, q, l, ok = afill.fill_pairs(
+                    _packed.device_codes(codes[pp[:, 0]], dev),
+                    _packed.device_quals(quals[pp[:, 0]], dev),
+                    lens(pp[:, 0]),
+                    _packed.device_codes(codes[pp[:, 1]], dev),
+                    _packed.device_quals(quals[pp[:, 1]], dev),
+                    lens(pp[:, 1]), fcfg, out_len)
+                m_codes[s:e] = c.cpu().numpy()
+                m_quals[s:e] = q.cpu().numpy()
+                m_len[s:e] = l.cpu().numpy()
+                m_ok[s:e] = ok.cpu().numpy()
+            m_codes = m_codes[:n_real_p]
+            m_quals = m_quals[:n_real_p]
+            m_len = m_len[:n_real_p]
+            m_ok = m_ok[:n_real_p]
+            # SamplePairedReadStats analog for the fragment library: estimate
+            # the empirical insert distribution from confident fills, persist
+            # the .distribs artifact, and reject fills whose insert size is
+            # implausible under it (ref: FillFragments' distribution check)
+            if int(m_ok.sum()) >= 200:
+                from allpathslg_tpu_torch.utils.intdist import IntDistribution
+                dist = IntDistribution.from_samples(m_len[m_ok])
+                rd.save_arrays("frag_distribs", **dist.to_arrays())
+                lp = dist.logpmf(m_len)
+                implausible = m_ok & (lp < np.log(1e-5 / max(len(dist.pmf),
+                                                             1)))
+                m_ok = m_ok & ~implausible
+            # output: filled rows + passthrough originals for failed pairs
+            bad = ~m_ok
+            pass_idx = np.concatenate([pairs[bad, 0], pairs[bad, 1]])
+            L = codes.shape[1]
+            pc_ = np.full((len(pass_idx), out_len), 4, np.uint8)
+            pq_ = np.zeros((len(pass_idx), out_len), np.uint8)
+            pc_[:, :L] = codes[pass_idx]
+            pq_[:, :L] = quals[pass_idx]
+            out_codes = np.concatenate([m_codes[m_ok], pc_])
+            out_quals = np.concatenate([m_quals[m_ok], pq_])
+            out_lens = np.concatenate([m_len[m_ok],
+                                       lengths[pass_idx]]).astype(np.int32)
+            rd.save_arrays("filled_reads", codes=out_codes, lengths=out_lens,
+                           quals=out_quals)
+            # filled lengths ARE the sampled insert sizes (ref:
+            # SamplePairedReadStats for the fragment library)
+            fl = m_len[m_ok]
+            return {"n_pairs": int(P), "n_filled": int(m_ok.sum()),
+                    "n_passthrough": int(len(pass_idx)),
+                    "fill_rate": round(float(m_ok.mean()), 3),
+                    "frag_insert_mean": (round(float(fl.mean()), 1)
+                                         if len(fl) else 0),
+                    "frag_insert_sd": (round(float(fl.std()), 1)
+                                       if len(fl) else 0)}
+
+        return self.run_stage("fill_fragments", ih, ["filled_reads.npz"], fn)
+
+    def unipaths(self):
+        cfg, rd = self.cfg, self.rd
+        ih = rd.hash_of("unipaths", cfg.K, cfg.min_kmer_count,
+                        self._art_hash("filled_reads"))
+
+        def fn():
+            from allpathslg_tpu_torch.asm import localize as aloc
+            from allpathslg_tpu_torch.graph import cleanup as gclean
+            from allpathslg_tpu_torch.graph import coverage as gcov
+            from allpathslg_tpu_torch.graph import pathsdb as pdb
+            from allpathslg_tpu_torch.long import eval_by_reads as ebr
+
+            a = rd.load_arrays("filled_reads", mmap=True)
+            t0 = time.perf_counter()
+            ck_acc = kcount.trim_to_host(self._count_streaming(
+                a["codes"], cfg.K, min_count=cfg.min_kmer_count))
+            self.log(f"  [unipaths] K={cfg.K} count: "
+                     f"{time.perf_counter() - t0:.1f}s "
+                     f"({int(ck_acc.n_unique)} kmers)")
+            t0 = time.perf_counter()
+            ups, graph, placement = unipath.build_unipaths(
+                ck_acc.words, cfg.K, min_count=cfg.min_kmer_count,
+                counts=ck_acc.counts, with_graph=True, with_placement=True)
+            self.log(f"  [unipaths] condense: "
+                     f"{time.perf_counter() - t0:.1f}s ({ups.n} unipaths)")
+            # localization: path the filled reads (= insert walks) through
+            # the unipath graph, drop uncrossed edges, split threaded
+            # repeats (ref: LocalizeReadsLG/MergeNeighborhoods)
+            lm = {}
+            if ups.n > 1:
+                t0 = time.perf_counter()
+                rp = pdb.path_reads(placement, a["codes"],
+                                    batch_size=cfg.batch_reads)
+                self.log(f"  [unipaths] path_reads: "
+                         f"{time.perf_counter() - t0:.1f}s")
+                t0 = time.perf_counter()
+                ups, graph, lm, rp = aloc.localize_resolve(ups, graph, rp)
+                self.log(f"  [unipaths] localize_resolve: "
+                         f"{time.perf_counter() - t0:.1f}s")
+                # truth-free read-support QC of the assembly graph (ref:
+                # src/paths/long/EvalByReads — placed/coherent fractions)
+                nw = np.maximum(
+                    np.asarray(a["lengths"], np.int64) - cfg.K + 1, 0)
+                _, _, qc = ebr.classify_reads(rp, graph, nw)
+                lm = {**lm,
+                      **{f"read_qc_{k}": v for k, v in qc.items()
+                         if k != "n_reads"}}
+            cn, peak = gcov.copy_numbers(ups)
+            # graph simplification: pop het bubbles (ploidy 2), trim spurs,
+            # merge linear chains (ref: MergeNeighborhoods2-style cleanup)
+            t0 = time.perf_counter()
+            contigs, cm = gclean.simplify(ups, graph, cfg.K,
+                                          ploidy=cfg.ploidy)
+            self.log(f"  [unipaths] simplify: "
+                     f"{time.perf_counter() - t0:.1f}s")
+            bases = (np.concatenate(contigs.seqs) if contigs.seqs
+                     else np.zeros(0, np.uint8))
+            offsets = np.zeros(len(contigs.seqs) + 1, np.int64)
+            np.cumsum([len(s) for s in contigs.seqs], out=offsets[1:])
+            # flatten ambiguity records (contig, offset, kept_len, alt...)
+            amb_c, amb_off, amb_klen, amb_alt, amb_aoff = [], [], [], [], [0]
+            for ci, alist in enumerate(contigs.ambiguities):
+                for (off, klen, alt) in alist:
+                    amb_c.append(ci)
+                    amb_off.append(off)
+                    amb_klen.append(klen)
+                    amb_alt.extend(alt.tolist())
+                    amb_aoff.append(len(amb_alt))
+            rd.save_arrays("unibases", bases=bases, offsets=offsets,
+                           amb_contig=np.asarray(amb_c, np.int32),
+                           amb_offset=np.asarray(amb_off, np.int64),
+                           amb_kept_len=np.asarray(amb_klen, np.int32),
+                           amb_alt=np.asarray(amb_alt, np.uint8),
+                           amb_alt_offsets=np.asarray(amb_aoff, np.int64))
+            recs = [(f"contig_{i}", contigs.seqs[i])
+                    for i in range(len(contigs.seqs))]
+            fio.write_fasta(rd.file_path("unibases.fasta"), recs)
+            self._write_unibases_efasta(contigs)
+            lens = [len(s) for s in contigs.seqs]
+            st = stats.assembly_stats(lens)
+            return {"n_unipaths": ups.n, "n50": st["n50"],
+                    "total_bases": st["total_bases"],
+                    "n_kmers": int(ck_acc.n_unique),
+                    "cn1_frac": round(float((cn == 1).mean()), 3),
+                    "coverage_peak": round(peak, 1), **lm, **cm}
+
+        return self.run_stage("unipaths", ih,
+                              ["unibases.npz", "unibases.fasta"], fn)
+
+    def _write_unibases_efasta(self, contigs):
+        """EFASTA with diploid {kept,alt} blocks (ref: final.contigs.efasta).
+        Ambiguity offsets refer to the pre-scaffolding contig set."""
+        from allpathslg_tpu_torch.dtypes.reads import string_from_codes
+        from allpathslg_tpu_torch.io import efasta as eio
+        recs = []
+        for ci, seq in enumerate(contigs.seqs):
+            alist = sorted(contigs.ambiguities[ci])
+            segs = []
+            pos = 0
+            for (off, klen, alt) in alist:
+                if off < pos or off + klen > len(seq):
+                    continue
+                if off > pos:
+                    segs.append(string_from_codes(seq[pos:off]))
+                segs.append((string_from_codes(seq[off : off + klen]),
+                             string_from_codes(alt)))
+                pos = off + klen
+            if pos < len(seq):
+                segs.append(string_from_codes(seq[pos:]))
+            recs.append((f"contig_{ci}", segs))
+        eio.write_efasta(self.rd.file_path("unibases.efasta"), recs)
+
+    def _align_reads_to_contigs(self, reads_art: str, out_art: str):
+        cfg, rd = self.cfg, self.rd
+        from allpathslg_tpu_torch.align import lookup as alook
+
+        u = rd.load_arrays("unibases")
+        j = rd.load_arrays(reads_art, mmap=True)
+        index = alook.build_index(u["bases"], u["offsets"], K=cfg.K_ec,
+                                  device=self.device)
+        acfg = alook.AlignConfig(K=cfg.K_ec)
+        fbd = torch.from_numpy(u["bases"]).to(self.device)  # upload ONCE
+        codes, n_real = _pad_batch(j["codes"], cfg.batch_reads, 4)
+        lens, _ = _pad_batch(j["lengths"], cfg.batch_reads, 0)
+        C = np.empty(len(codes), np.int32)
+        D = np.empty(len(codes), np.int32)
+        O = np.empty(len(codes), bool)
+        MM = np.empty(len(codes), np.int32)
+        OK = np.empty(len(codes), bool)
+        for s in range(0, len(codes), cfg.batch_reads):
+            e = s + cfg.batch_reads
+            C[s:e], D[s:e], O[s:e], MM[s:e], OK[s:e] = alook.align_reads(
+                index, codes[s:e], lens[s:e], acfg, fbd)
+        rd.save_arrays(out_art, contig=C[:n_real], anchor=D[:n_real],
+                       is_rc=O[:n_real], mismatches=MM[:n_real],
+                       aligned=OK[:n_real])
+        return {"n_aligned": int(OK[:n_real].sum()),
+                "align_rate": round(float(OK[:n_real].mean()), 3)}
+
+    def align_frags(self):
+        """Place filled fragment reads on the contigs (for patching/polish)."""
+        rd = self.rd
+        ih = rd.hash_of("align_frags", self._art_hash("filled_reads"),
+                        self._art_hash("unibases"))
+
+        def fn():
+            return self._align_reads_to_contigs("filled_reads",
+                                                "frag_alignlets")
+
+        return self.run_stage("align_frags", ih, ["frag_alignlets.npz"], fn)
+
+    def _lib_coverage_lines(self, assembly_bases: int) -> List[str]:
+        """LibCoverage table (ref: src/paths/reporting/LibCoverage.cc —
+        per-library read counts, base counts, sequence & physical cov).
+        Reads `lib_ids`, as the reference does (ROADMAP.md Queue 3)."""
+        rd = self.rd
+        lines = ["library coverage:",
+                 f"{'lib':>12} {'type':>6} {'reads':>10} {'bases':>12} "
+                 f"{'seq_cov':>8} {'phys_cov':>9}"]
+        for art, typ in (("frag_reads_orig", "frag"),
+                         ("jump_reads_orig", "jump"),
+                         ("long_jump_reads_orig", "ljump")):
+            if not rd.has(art):
+                continue
+            a = rd.load_arrays(art)
+            lengths = a["lengths"]
+            pairs = a.get("pairs")
+            lib_ids = a.get("lib_ids")
+            seps = a.get("lib_sep", np.asarray([0]))
+            n_libs = len(seps)
+            for lib in range(n_libs):
+                if pairs is not None and len(pairs) and lib_ids is not None \
+                        and len(lib_ids) == len(pairs):
+                    sel_pairs = pairs[lib_ids == lib] if n_libs > 1 else pairs
+                else:
+                    sel_pairs = pairs if pairs is not None else None
+                if sel_pairs is not None and len(sel_pairs):
+                    ridx = sel_pairs.reshape(-1)
+                else:
+                    ridx = np.arange(len(lengths))
+                nb = int(lengths[ridx].sum())
+                seq_cov = nb / max(assembly_bases, 1)
+                n_pairs = len(sel_pairs) if sel_pairs is not None else 0
+                phys = (n_pairs * int(seps[lib]) / max(assembly_bases, 1)
+                        if n_pairs else seq_cov)
+                lines.append(f"{typ + str(lib):>12} {typ:>6} {len(ridx):>10} "
+                             f"{nb:>12} {seq_cov:>8.1f} {phys:>9.1f}")
+        return lines
+
+    def report(self):
+        cfg, rd = self.cfg, self.rd
+        # the inputs hash covers only unibases, as the reference's does
+        # (ROADMAP.md Queue 3: a resumed run can skip a stale report)
+        ih = rd.hash_of("report", self._art_hash("unibases"))
+
+        def fn():
+            u = rd.load_arrays("contigs_final") if rd.has("contigs_final") \
+                else rd.load_arrays("unibases")
+            lens = np.diff(u["offsets"])
+            min_len = cfg.min_contig_len or 2 * cfg.K
+            st = stats.assembly_stats(lens, min_len=min_len)
+            lines = ["allpathslg_tpu assembly report",
+                     "=" * 32]
+            for s in ["validate_inputs", "remove_dodgy", "precorrect",
+                      "find_errors", "clean_reads", "fill_fragments",
+                      "unipaths", "jump_ec", "align_jumps", "make_scaffolds",
+                      "align_frags", "patch_gaps", "long_read_patch",
+                      "assisted", "polish", "clean_final", "evaluate"]:
+                m = self.rd.metrics(s)
+                if m:
+                    lines.append(f"[{s}] " + ", ".join(
+                        f"{k}={v}" for k, v in m.items()))
+            lines.append("")
+            lines.append(f"contigs (len >= {min_len}): {st['n_contigs']}")
+            lines.append(f"total bases: {st['total_bases']}")
+            lines.append(f"contig N50: {st['n50']}")
+            lines.append(f"contig N90: {st['n90']}")
+            lines.append(f"max contig: {st['max_len']}")
+            sm = self.rd.metrics("make_scaffolds")
+            if sm and "scaffold_n50" in sm:
+                lines.append(f"scaffolds: {sm['n_scaffolds']}")
+                lines.append(f"scaffold N50: {sm['scaffold_n50']}")
+                lines.append(f"scaffold total: {sm['scaffold_total']}")
+            um = self.rd.metrics("unipaths")
+            if um and "read_qc_placed_frac" in um:
+                lines.append("")
+                lines.append(
+                    "read-support QC (EvalByReads): "
+                    f"placed={um['read_qc_placed_frac']}, "
+                    f"coherent={um['read_qc_coherent_frac']}, "
+                    "unsupported_transitions="
+                    f"{um['read_qc_n_unsupported_transitions']}")
+            lines.append("")
+            lines.extend(self._lib_coverage_lines(int(st["total_bases"])))
+            with open(rd.file_path("assembly.report"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+            self.log("\n".join(lines))
+            return {k: (int(v) if isinstance(v, (int, np.integer))
+                        else float(v))
+                    for k, v in st.items()}
+
+        return self.run_stage("report", ih, ["assembly.report"], fn)
+
+    def run_contig_slice(self) -> Dict:
+        """The minimum slice: inputs -> contigs + report."""
+        self.validate_inputs()
+        self.remove_dodgy()
+        self.precorrect()
+        self.find_errors()
+        self.clean_reads()
+        self.fill_fragments()
+        self.unipaths()
+        return self.report()
 
     # ---- helpers ----
 

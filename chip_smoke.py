@@ -7,7 +7,9 @@ Needs one CUDA GPU (it raises without one) and `nvcc`; it imports nothing
 of JAX or of the JAX package. Phases, each printed as it ends:
 
   1. the card: `nvidia-smi` name and power limit, torch's device name;
-  2. build the Hopper radix sort (csrc/radix_sort.cu) with nvcc for sm_90a;
+  2. build both Hopper kernels, the radix sort (csrc/radix_sort.cu) and
+     the bit-parallel banded DP (csrc/banded_bp.cu), with nvcc for
+     sm_90a, one nvcc for each, started together;
   3. sort parity on the card at the flagship's shape (131,072 reads x
      150 bp at K=24: 16,646,144 two-word keys): the kernel against its
      plain PyTorch version, exactly, with many duplicate keys and with
@@ -15,15 +17,27 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      ops/sort.sort_by_words against the same call on the CPU (where it
      takes the plain version); median times of kernel and plain version;
   4. spectrum_step(K=24) on the same batch, against the CPU spectrum;
-  5. the error-correction front of the contig slice through
-     Pipeline(device="cuda"): prepare_sim_inputs -> validate_inputs ->
-     remove_dodgy -> precorrect -> find_errors -> clean_reads on a
-     simulated genome (default 4.6 Mb, 100x fragment coverage, 100 bp
-     reads, 0.5 % error, seed 0, batch_reads 65536). It checks that the
-     sort kernel ran in validate_inputs, precorrect and find_errors, that
-     the 25-mer genome-size estimate is within 20 % of the truth, that
-     corrections were made, and that the sampled fraction of true 24-mers
-     rises from the input reads to the cleaned reads.
+  5. banded-DP parity on the card: the kernel against the plain
+     ops/banded.banded_align, exactly (cost and t_end), at (a) the
+     align_frags rescue shape (65,536 x 260 x 276, band 8; reads with
+     1-2 indels, ragged lengths, infeasible offsets), (b) bands 1 and 15,
+     (c) bench.py's DP shape (16,384 x 100 x 140, band 15) and (d) an
+     N-bearing batch (against the plain version on the query with code
+     4 -> 6); median times of kernel and plain version at (a) and (c);
+  6. the contig slice and align_frags through Pipeline(device="cuda"):
+     prepare_sim_inputs -> validate_inputs -> remove_dodgy -> precorrect
+     -> find_errors -> clean_reads -> fill_fragments -> unipaths ->
+     report -> align_frags on a simulated genome (default 4.6 Mb, 100x
+     fragment coverage, 100 bp reads, 0.5 % error, seed 0, batch_reads
+     65536), with each stage's wall time and kernel launches. It checks
+     that the sort kernel ran in validate_inputs, precorrect, find_errors
+     and unipaths and the banded kernel in align_frags; that the 25-mer
+     genome-size estimate is within 20 % of the truth; that corrections
+     were made and the sampled fraction of true 24-mers rises from the
+     input reads to the cleaned reads; that the contigs total within 5 %
+     of the genome with N50 >= 100 kb (half the genome when
+     --genome-size is below 200 kb); that align_frags aligns >= 90 % of
+     the filled reads; and that assembly.report names the contig N50.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is the kernel record {"kernels": [...]}; the last line is
@@ -87,12 +101,19 @@ def phase_card():
 
 
 def phase_build():
-    from allpathslg_tpu_torch.ops.cuda import sort_cuda
+    """Build both kernels from the checkout's sources, one nvcc each, all
+    started together; then load both libraries."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    path, secs = sort_cuda.build()
-    sort_cuda.library()
-    say(f"[build] {path.name}: nvcc {secs:.2f} s "
-        f"({'cached' if secs == 0.0 else 'built from source'})")
+    from allpathslg_tpu_torch.ops.cuda import banded_cuda, sort_cuda
+
+    mods = (sort_cuda, banded_cuda)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        built = list(pool.map(lambda m: m.build(), mods))
+    for mod, (path, secs) in zip(mods, built):
+        mod.library()
+        say(f"[build] {path.name}: nvcc {secs:.2f} s "
+            f"({'cached' if secs == 0.0 else 'built from source'})")
 
 
 def flagship_codes(seed: int) -> np.ndarray:
@@ -173,6 +194,105 @@ def phase_spectrum(codes: np.ndarray):
         f"equal to the plain version")
 
 
+def dp_problems(rng, B: int, Lq: int, Lt: int, band: int,
+                with_n: bool = False):
+    """Banded-DP inputs like the align_frags rescue builds them: the
+    target is a contig window, the query a copy of the window at the
+    expected diagonal (offset = band) carrying substitutions and, for
+    three reads in four, 1-2 indels (tests/test_align.py); ragged q_len
+    and t_len, and some offsets out of range or off the diagonal. With
+    `with_n`, 1 % of query bases and the last few target columns of some
+    problems are code 4 (an N read against a window past a contig end)."""
+    src = rng.integers(0, 4, (B, Lt + 2)).astype(np.uint8)
+    j = np.arange(Lq)[None, :]
+    kind = np.arange(B) % 4
+    p1 = rng.integers(Lq // 5, Lq // 2, B)[:, None]
+    p2 = rng.integers(Lq // 2, 4 * Lq // 5, B)[:, None]
+    idx = np.broadcast_to(j + band, (B, Lq)).copy()
+    idx += ((kind[:, None] == 1) | (kind[:, None] == 3)) & (j >= p1)  # del
+    ins = ((kind[:, None] == 2) & (j >= p1)) | ((kind[:, None] == 3)
+                                                 & (j >= p2))
+    idx -= ins                                                       # ins
+    q = np.take_along_axis(src, np.clip(idx, 0, Lt + 1), axis=1)
+    ins_at = ((kind[:, None] == 2) & (j == p1)) | ((kind[:, None] == 3)
+                                                    & (j == p2))
+    q = np.where(ins_at, rng.integers(0, 4, (B, Lq)), q)
+    sub = rng.random((B, Lq)) < 0.01
+    q = np.where(sub, (q + rng.integers(1, 4, (B, Lq))) % 4, q)
+    q_len = rng.integers(Lq // 2, Lq + 1, B).astype(np.int32)
+    q_len[: B // 8] = Lq
+    t_len = np.where(rng.random(B) < 0.2,
+                     rng.integers(Lq // 2, Lt + 1, B), Lt).astype(np.int32)
+    offset = np.full(B, band, np.int32)
+    off_diag = rng.random(B) < 0.05
+    offset[off_diag] = rng.integers(-band, band + 1, int(off_diag.sum()))
+    bad = rng.random(B) < 0.03
+    offset[bad] = np.where(rng.random(int(bad.sum())) < 0.5,
+                           -(Lq + band) - rng.integers(1, 50, int(bad.sum())),
+                           Lt + band + rng.integers(1, 50, int(bad.sum())))
+    t = src[:, :Lt].copy()
+    if with_n:
+        q = np.where(rng.random((B, Lq)) < 0.01, 4, q)
+        past_end = rng.random(B) < 0.3
+        t[past_end, Lt - 6:] = 4
+    q = np.where(j < q_len[:, None], q, 4).astype(np.uint8)
+    return q, q_len, t, t_len, offset
+
+
+def phase_banded(seed: int):
+    """The bit-parallel banded-DP kernel against its plain version,
+    exactly (cost and t_end), at the align_frags rescue shape, at bands 1
+    and 15, at bench.py's DP shape, and on an N-bearing batch (compared
+    with the plain version on a query whose code 4 became 6, which matches
+    nothing, as the kernel's query code 4 does). Returns the record."""
+    from allpathslg_tpu_torch.ops import banded
+    from allpathslg_tpu_torch.ops.cuda import banded_cuda
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 2)
+    sets = [("a: align_frags rescue", 65_536, 260, 276, 8, False),
+            ("b: band 1", 16_384, 150, 160, 1, False),
+            ("b: band 15", 16_384, 260, 290, 15, False),
+            ("c: bench.py DP shape", 16_384, 100, 140, 15, False),
+            ("d: N-bearing, rescue shape", 65_536, 260, 276, 8, True)]
+    max_err = 0
+    times = {}
+    for label, B, Lq, Lt, band, with_n in sets:
+        q, ql, t, tl, off = (torch.from_numpy(x).to(dev) for x in
+                             dp_problems(rng, B, Lq, Lt, band, with_n))
+        q_plain = torch.where(q == 4, 6, q) if with_n else q
+        cost, t_end = banded_cuda.banded_align_bp(q, ql, t, tl, off, band)
+        torch.cuda.synchronize()
+        want_c, want_e = banded.banded_align(q_plain, ql, t, tl, off,
+                                             band=band)
+        err = max(int((cost - want_c).abs().max()),
+                  int((t_end - want_e).abs().max()))
+        check(err == 0, f"banded kernel != plain version on {label}")
+        max_err = max(max_err, err)
+        found = want_c < banded.BIG
+        say(f"[banded] {label}: B={B}, Lq={Lq}, Lt={Lt}, band={band}: "
+            f"kernel == plain (cost and t_end); {int(found.sum())} with an "
+            f"in-band path, median cost "
+            f"{float(want_c[found].float().median()):.0f}")
+        if label[0] in "ac":
+            def plain():
+                return banded.banded_align(q, ql, t, tl, off, band=band)
+
+            def kernel():
+                return banded_cuda.banded_align_bp(q, ql, t, tl, off, band)
+
+            turns = [median_ms(plain), median_ms(kernel), median_ms(plain),
+                     median_ms(kernel)]
+            times[label[0]] = turns
+            say(f"[banded] {label}: median of {TIMING_REPS}, in turns "
+                f"plain/kernel/plain/kernel: plain {turns[0]:.3f} / "
+                f"{turns[2]:.3f} ms, kernel {turns[1]:.3f} / "
+                f"{turns[3]:.3f} ms")
+    a = times["a"]
+    return {"max_abs_err": max_err, "ms": min(a[1], a[3]),
+            "plain_ms": min(a[0], a[2])}
+
+
 def _canonical_kmers(codes: np.ndarray, K: int):
     """(canonical 2-bit packed K-mers uint64 [R, P], valid [R, P])."""
     R, L = codes.shape
@@ -199,8 +319,15 @@ def true_kmer_frac(codes: np.ndarray, genome_kmers: np.ndarray, K: int,
     return round(float(hit.sum()) / max(int(valid.sum()), 1), 5)
 
 
+SLICE_STAGES = ("validate_inputs", "remove_dodgy", "precorrect",
+                "find_errors", "clean_reads", "fill_fragments", "unipaths",
+                "report", "align_frags")
+
+
 def phase_slice(genome_size: int, seed: int):
-    from allpathslg_tpu_torch.ops.cuda import sort_cuda
+    """The contig slice and align_frags through Pipeline(device="cuda");
+    returns each kernel's launches in the run."""
+    from allpathslg_tpu_torch.ops.cuda import banded_cuda, sort_cuda
     from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
     from allpathslg_tpu_torch.pipeline.rundir import RunDir
     from allpathslg_tpu_torch.pipeline.run import prepare_sim_inputs
@@ -217,23 +344,35 @@ def phase_slice(genome_size: int, seed: int):
         f"{coverage:g}x, {read_len} bp reads, error {err}: "
         f"{time.perf_counter() - t0:.1f} s")
     cfg = AssemblyConfig.from_overrides()
-    pipe = Pipeline(rd, cfg, quiet, device="cuda")
-    sort_cuda.reset_launch_count()
+
+    def log(msg: str):  # the unipaths stage's own step times
+        if msg.startswith("  [unipaths]"):
+            say(f"[slice] {msg.strip()}")
+
+    pipe = Pipeline(rd, cfg, log, device="cuda")
+    kernels = {"sort": sort_cuda, "banded": banded_cuda}
+    for mod in kernels.values():
+        mod.reset_launch_count()
     metrics, launches = {}, {}
-    for stage in ("validate_inputs", "remove_dodgy", "precorrect",
-                  "find_errors", "clean_reads"):
-        before = sort_cuda.launch_count()
+    for stage in SLICE_STAGES:
+        before = {k: m.launch_count() for k, m in kernels.items()}
         t = time.perf_counter()
         metrics[stage] = getattr(pipe, stage)()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
-        launches[stage] = sort_cuda.launch_count() - before
+        launches[stage] = {k: m.launch_count() - before[k]
+                           for k, m in kernels.items()}
         shown = {k: v for k, v in metrics[stage].items() if k != "libraries"}
-        say(f"[slice] {stage}: {dt:.1f} s, sort kernel launches "
-            f"{launches[stage]}, {shown}")
-    total_launches = sort_cuda.launch_count()
-    for stage in ("validate_inputs", "precorrect", "find_errors"):
-        check(launches[stage] > 0, f"{stage} never launched the sort kernel")
+        say(f"[slice] {stage}: {dt:.1f} s, kernel launches "
+            f"sort {launches[stage]['sort']}, banded "
+            f"{launches[stage]['banded']}; {shown}")
+    total = {k: m.launch_count() for k, m in kernels.items()}
+    for stage in ("validate_inputs", "precorrect", "find_errors",
+                  "unipaths"):
+        check(launches[stage]["sort"] > 0,
+              f"{stage} never launched the sort kernel")
+    check(launches["align_frags"]["banded"] > 0,
+          "align_frags never launched the banded kernel")
 
     est = metrics["validate_inputs"]["genome_size_est"]
     check(abs(est - genome_size) <= 0.2 * genome_size,
@@ -253,8 +392,23 @@ def phase_slice(genome_size: int, seed: int):
     say(f"[slice] genome_size_est {est} (truth {genome_size}); corrections "
         f"precorrect {n_fix[0]}, find_errors {n_fix[1]}; true 24-mer "
         f"fraction {before} -> {after}")
+
+    rep = metrics["report"]
+    check(abs(rep["total_bases"] - genome_size) <= 0.05 * genome_size,
+          f"contig total {rep['total_bases']} not within 5% of "
+          f"{genome_size}")
+    check(rep["n50"] >= min(100_000, genome_size // 2),
+          f"contig N50 {rep['n50']} < 100 kb")
+    rate = metrics["align_frags"]["align_rate"]
+    check(rate >= 0.90, f"align_frags align_rate {rate} < 0.90")
+    report = Path(rd.file_path("assembly.report"))
+    check(report.exists() and f"contig N50: {rep['n50']}" in
+          report.read_text(), "assembly.report missing or without the N50")
+    say(f"[slice] contigs {rep['n_contigs']}, total {rep['total_bases']} bp "
+        f"(genome {genome_size}), N50 {rep['n50']}, max {rep['max_len']}; "
+        f"align_frags align_rate {rate}; assembly.report names the N50")
     shutil.rmtree(run_dir, ignore_errors=True)
-    return total_launches
+    return total
 
 
 def main(argv=None) -> int:
@@ -271,12 +425,17 @@ def main(argv=None) -> int:
     codes = flagship_codes(args.seed)
     record = phase_sort(codes, args.seed)
     phase_spectrum(codes)
+    dp_record = phase_banded(args.seed)
     launches = phase_slice(args.genome_size, args.seed)
     say(json.dumps({"kernels": [{
         "name": "radix_sort_u64", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/radix_sort.cu",
         "replaces": "allpathslg_tpu/ops/pallas/sort_pallas.py:178",
-        "launches": launches, **record}]}))
+        "launches": launches["sort"], **record}, {
+        "name": "banded_bp", "route": "cuda",
+        "source": "allpathslg_tpu_torch/csrc/banded_bp.cu",
+        "replaces": "allpathslg_tpu/ops/pallas/banded_bp.py:294",
+        "launches": launches["banded"], **dp_record}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

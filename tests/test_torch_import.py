@@ -13,6 +13,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 PORT_MODULES = [
     "allpathslg_tpu_torch",
+    "allpathslg_tpu_torch.align.lookup",
+    "allpathslg_tpu_torch.asm.amb",
+    "allpathslg_tpu_torch.asm.fill",
+    "allpathslg_tpu_torch.asm.localize",
     "allpathslg_tpu_torch.convert",
     "allpathslg_tpu_torch.dtypes.devcache",
     "allpathslg_tpu_torch.dtypes.packed",
@@ -20,11 +24,23 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.ec.precorrect",
     "allpathslg_tpu_torch.ec.spectrum_ec",
     "allpathslg_tpu_torch.eval.sim",
+    "allpathslg_tpu_torch.eval.stats",
+    "allpathslg_tpu_torch.graph.cleanup",
+    "allpathslg_tpu_torch.graph.coverage",
+    "allpathslg_tpu_torch.graph.digraph",
+    "allpathslg_tpu_torch.graph.pathsdb",
+    "allpathslg_tpu_torch.graph.unipath",
+    "allpathslg_tpu_torch.io.efasta",
+    "allpathslg_tpu_torch.io.fasta",
     "allpathslg_tpu_torch.kmer.bits",
     "allpathslg_tpu_torch.kmer.count",
     "allpathslg_tpu_torch.kmer.kmerize",
     "allpathslg_tpu_torch.kmer.spectrum",
+    "allpathslg_tpu_torch.long.eval_by_reads",
     "allpathslg_tpu_torch.models.flagship",
+    "allpathslg_tpu_torch.ops.banded",
+    "allpathslg_tpu_torch.ops.cuda.banded_cuda",
+    "allpathslg_tpu_torch.ops.cuda.nvcc",
     "allpathslg_tpu_torch.ops.cuda.sort_cuda",
     "allpathslg_tpu_torch.ops.join",
     "allpathslg_tpu_torch.ops.segmented",
@@ -33,12 +49,15 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.pipeline.run",
     "allpathslg_tpu_torch.pipeline.rundir",
     "allpathslg_tpu_torch.pipeline.stages",
+    "allpathslg_tpu_torch.utils.intdist",
 ]
 
 REFERENCE_MODULES = [m.replace("allpathslg_tpu_torch", "allpathslg_tpu")
                      for m in PORT_MODULES
-                     if m.split(".")[-1] not in ("convert", "sort_cuda")] + [
+                     if m.split(".")[-1] not in ("convert", "sort_cuda",
+                                                 "banded_cuda", "nvcc")] + [
     "allpathslg_tpu.ops.pallas.sort_pallas",
+    "allpathslg_tpu.ops.pallas.banded_bp",
 ]
 
 

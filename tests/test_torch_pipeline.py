@@ -1,11 +1,13 @@
-"""The port's five EC-front stages == the reference's, byte for byte.
+"""The port's contig slice and align_frags == the reference's, byte for byte.
 
 Both packages run validate_inputs -> remove_dodgy -> precorrect ->
-find_errors -> clean_reads on the same simulated genome (20 kb x 40x,
-batch_reads=4096, as tests/test_pipeline_mesh.py sizes it); every artifact
-and every stage metric must be identical. Also: the options that lead off
-the ported slice raise NotImplementedError, a CUDA pipeline without a card
-raises, and an interrupted find_errors resumes to the same artifacts.
+find_errors -> clean_reads -> fill_fragments -> unipaths -> report ->
+align_frags on the same simulated genome (20 kb x 40x, batch_reads=4096,
+as tests/test_pipeline_mesh.py sizes it); every artifact (arrays, FASTA,
+EFASTA and the report text) and every stage metric must be identical.
+Also: the options that lead off the ported slice raise
+NotImplementedError, a CUDA pipeline without a card raises, and an
+interrupted find_errors resumes to the same artifacts.
 """
 
 import numpy as np
@@ -25,10 +27,13 @@ from allpathslg_tpu_torch.pipeline.stages import Pipeline as TPipeline  # noqa: 
 
 torch.set_num_threads(2)
 STAGES = ["validate_inputs", "remove_dodgy", "precorrect", "find_errors",
-          "clean_reads"]
+          "clean_reads", "fill_fragments", "unipaths", "report",
+          "align_frags"]
 ARTIFACTS = ["frag_reads_orig", "genome_truth", "kspec_25mer",
              "frag_reads_filt", "frag_reads_prec", "frag_reads_edit",
-             "frag_reads_corr"]
+             "frag_reads_corr", "filled_reads", "frag_distribs", "unibases",
+             "frag_alignlets"]
+TEXT_FILES = ["unibases.fasta", "unibases.efasta", "assembly.report"]
 SIM = (20000, 40.0, 0.005, 100, 11)     # genome, coverage, error, len, seed
 CFG = dict(batch_reads=4096, stage_workers=1)
 
@@ -65,6 +70,16 @@ def test_artifacts_byte_identical(both, art):
         assert a[k].tobytes() == b[k].tobytes(), (art, k)
 
 
+@pytest.mark.parametrize("name", TEXT_FILES)
+def test_text_artifacts_byte_identical(both, name):
+    rd_r, _, rd_t, _ = both
+    with open(rd_r.file_path(name), "rb") as f:
+        a = f.read()
+    with open(rd_t.file_path(name), "rb") as f:
+        b = f.read()
+    assert a and a == b
+
+
 def test_strong_table_byte_identical(both):
     rd_r, _, rd_t, _ = both
     a = np.load(rd_r.file_path("strong_table.npy"))
@@ -85,6 +100,27 @@ def test_ec_front_did_work(both):
     assert m_t["find_errors"]["n_corrections"] > 0
     est = m_t["validate_inputs"]["genome_size_est"]
     assert abs(est - SIM[0]) < 0.2 * SIM[0]
+
+
+def test_contig_slice_did_work(both):
+    """The slice assembles the genome and places the filled reads."""
+    _, _, rd_t, m_t = both
+    assert m_t["fill_fragments"]["n_filled"] > 0
+    rep = m_t["report"]
+    assert abs(rep["total_bases"] - SIM[0]) < 0.05 * SIM[0]
+    assert rep["n50"] > SIM[0] // 2
+    assert m_t["align_frags"]["align_rate"] > 0.9
+    with open(rd_t.file_path("assembly.report")) as f:
+        assert f"contig N50: {rep['n50']}" in f.read()
+
+
+def test_run_contig_slice_resumes_to_the_report(both):
+    """run_contig_slice over the finished run dir skips every stage and
+    returns the report's metrics."""
+    _, m_r, rd_t, _ = both
+    port = TPipeline(rd_t, TConfig.from_overrides(**CFG), _quiet,
+                     device="cpu")
+    assert port.run_contig_slice() == m_r["report"]
 
 
 def test_config_json_and_manifest_resume(both):
