@@ -5,17 +5,21 @@ reference file to be held against; the JAX package is the reference and
 the parity tests (tests/test_torch_*.py) feed both the same numpy inputs.
 This package imports torch and never jax or allpathslg_tpu.
 
-Ported so far: the contig slice (reads in; 25-mer spectra, corrected
-reads, filled fragments, unipaths, contigs and the assembly report out)
-and the fragment alignment (align_frags), plus the flagship spectrum step.
-Two Pallas kernels of the reference are hand-written CUDA kernels for
-Hopper here: the k-mer sort (ops/pallas/sort_pallas.py::sort_two_words ->
+Ported so far: `run_full` for a fragment library plus jump libraries
+(reads in; spectra, corrected reads, contigs, scaffolds, the patched and
+polished final assembly, the submission package, the evaluation and the
+assembly report out), plus the flagship spectrum step. All three Pallas
+kernels of the reference are hand-written CUDA kernels for Hopper here:
+the k-mer sort (ops/pallas/sort_pallas.py::sort_two_words ->
 csrc/radix_sort.cu, ops/cuda/sort_cuda.py), through which every k-mer key
-sort runs on a CUDA device, and the bit-parallel banded DP
+sort runs on a CUDA device; the bit-parallel banded DP
 (ops/pallas/banded_bp.py::banded_align_bp -> csrc/banded_bp.cu,
-ops/cuda/banded_cuda.py) of align_frags' gapped rescue. Host-only numpy
-modules of the reference (io/, graph/cleanup, asm/localize, ...) are
-copies with their imports pointed at the port.
+ops/cuda/banded_cuda.py) of the alignment rescue, patch_gaps' probes and
+polish; and the general banded DP
+(ops/pallas/banded_pallas.py::banded_align_pallas -> csrc/banded_general.cu,
+ops/cuda/banded_general_cuda.py) of patch_gaps' negative junctions.
+Host-only numpy modules of the reference (io/, scaffold/, graph/cleanup,
+asm/localize, ...) are copies with their imports pointed at the port.
 """
 
 __version__ = "0.1.0"

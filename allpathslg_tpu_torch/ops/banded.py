@@ -18,11 +18,12 @@ matches a target code 4, as the reference's `banded_align` does.
 `banded_align_auto` is the product dispatcher: a CPU tensor takes
 `banded_align`; a CUDA tensor at unit costs and band <= 15 takes the Hopper
 bit-parallel kernel (ops/cuda/banded_cuda.py, the port of
-ops/pallas/banded_bp.py); anything else on a CUDA tensor needs the general
-kernel (ops/pallas/banded_pallas.py::banded_align_pallas), which is not
-ported yet, and raises NotImplementedError. The reference's TPU VMEM model
-(`banded_bp.vmem_fits`) has no counterpart: the Hopper kernel takes any
-shape.
+ops/pallas/banded_bp.py); anything else on a CUDA tensor takes the Hopper
+general kernel (ops/cuda/banded_general_cuda.py, the port of
+ops/pallas/banded_pallas.py::banded_align_pallas), whose wrapper raises
+ValueError above its largest band. The reference's TPU VMEM model
+(`banded_bp.vmem_fits`) and its 128-lane batch padding have no
+counterpart: the Hopper kernels take any shape.
 """
 
 from __future__ import annotations
@@ -100,16 +101,14 @@ def banded_align_auto(q, q_len, t, t_len, offset, band: int = 16,
     if q.device.type == "cpu":
         return banded_align(q, q_len, t, t_len, offset, band=band,
                             sub_cost=sub_cost, gap_cost=gap_cost)
-    from allpathslg_tpu_torch.ops.cuda import banded_cuda
+    from allpathslg_tpu_torch.ops.cuda import banded_cuda, banded_general_cuda
 
     if sub_cost == 1 and gap_cost == 1 and band <= banded_cuda.MAX_BAND:
         return banded_cuda.banded_align_bp(q, q_len, t, t_len, offset,
                                            band=band)
-    raise NotImplementedError(
-        f"banded_align_auto(band={band}, sub_cost={sub_cost}, "
-        f"gap_cost={gap_cost}) on {q.device} needs the general kernel "
-        f"(allpathslg_tpu/ops/pallas/banded_pallas.py::banded_align_pallas), "
-        f"which is not ported to allpathslg_tpu_torch yet (ROADMAP.md)")
+    return banded_general_cuda.banded_align_general(
+        q, q_len, t, t_len, offset, band=band, sub_cost=sub_cost,
+        gap_cost=gap_cost)
 
 
 def np_banded_oracle(q, t, offset, band, sub_cost=1, gap_cost=1):

@@ -27,23 +27,22 @@ import ctypes
 import torch
 
 from allpathslg_tpu_torch.ops import banded
-from allpathslg_tpu_torch.ops.cuda import nvcc
+from allpathslg_tpu_torch.ops.cuda import launches, nvcc
 
 MAX_BAND = 15          # K = 2 * band + 1 slots must fit one uint32
 _SOURCE = "banded_bp.cu"
 
+_KERNEL = "banded_bp"  # name in ops/cuda/launches.py
 _lib = None
-_launches = 0
 
 
 def launch_count() -> int:
     """Kernel launches made through `banded_align_bp` since the last reset."""
-    return _launches
+    return launches.count(_KERNEL)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    launches.reset(_KERNEL)
 
 
 def banded_align_bp_plain(q, q_len, t, t_len, offset, band: int = 15):
@@ -65,7 +64,6 @@ def banded_align_bp(q, q_len, t, t_len, offset, band: int = 15):
 
 
 def _banded_align_bp_cuda(q, q_len, t, t_len, offset, band: int):
-    global _launches
     if not 0 <= band <= MAX_BAND:
         raise ValueError(f"banded_align_bp: band={band} not in 0..{MAX_BAND}")
     if q.dtype != torch.uint8 or t.dtype != torch.uint8:
@@ -97,7 +95,7 @@ def _banded_align_bp_cuda(q, q_len, t, t_len, offset, band: int):
         msg = lib.banded_bp_error_string(err).decode()
         raise RuntimeError(f"banded_bp_launch failed: CUDA error {err} "
                            f"({msg})")
-    _launches += 1
+    launches.record(_KERNEL)
     return cost, t_end
 
 

@@ -23,23 +23,22 @@ import ctypes
 
 import torch
 
-from allpathslg_tpu_torch.ops.cuda import nvcc
+from allpathslg_tpu_torch.ops.cuda import launches, nvcc
 
 _SIGN = -(1 << 63)          # int64 with only the top bit set
 _SOURCE = "radix_sort.cu"
 
+_KERNEL = "radix_sort"  # name in ops/cuda/launches.py
 _lib = None
-_launches = 0
 
 
 def launch_count() -> int:
     """Kernel launches made through `radix_sort` since the last reset."""
-    return _launches
+    return launches.count(_KERNEL)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    launches.reset(_KERNEL)
 
 
 def radix_sort_plain(keys: torch.Tensor, key_bits: int):
@@ -60,7 +59,6 @@ def radix_sort(keys: torch.Tensor, key_bits: int):
 
 
 def _radix_sort_cuda(keys: torch.Tensor, key_bits: int):
-    global _launches
     if keys.dtype != torch.int64 or keys.dim() != 1:
         raise ValueError(f"radix_sort: want int64 [n], got {keys.dtype} "
                          f"{tuple(keys.shape)}")
@@ -91,7 +89,7 @@ def _radix_sort_cuda(keys: torch.Tensor, key_bits: int):
     if err != 0:
         msg = lib.radix_sort_error_string(err).decode()
         raise RuntimeError(f"radix_sort_u64 failed: CUDA error {err} ({msg})")
-    _launches += 1
+    launches.record(_KERNEL)
     return (keys_b, idx_b) if in_b.value else (keys_a, idx_a)
 
 

@@ -1,20 +1,59 @@
-"""Pipeline inputs (port of allpathslg_tpu/pipeline/run.py, the fragment
-part of its simulated-input preparation). The reference's CLI, FASTQ and
-library-sheet imports, and jump / long-jump / PacBio simulation are not
-ported yet (ROADMAP.md)."""
+"""Pipeline CLI, the RunAllPathsLG analog (port of
+allpathslg_tpu/pipeline/run.py).
+
+Usage (simulated input, the built-in test oracle):
+  python -m allpathslg_tpu_torch.pipeline.run --run-dir /tmp/run1 \\
+      --sim-genome 100000 --coverage 50 --error-rate 0.005 \\
+      [--jump-coverage 50 --jump-insert 3000 --jump-sd 300] \\
+      [--device cuda] [--k 96] [KEY=VALUE ...]
+
+KEY=VALUE pairs override any AssemblyConfig field (ref: RunAllPathsLG's
+ArachneArgs KEY=VALUE forwarding). The run goes through `run_full` on
+`--device` (default cuda). Not ported yet (ROADMAP.md), and raising
+NotImplementedError: FASTQ import (--frag-fastq), library sheets
+(--in-libs/--in-groups), long-jump libraries (--long-jump-libs) and PacBio
+reads (--pacbio-coverage).
+"""
 
 from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
 
 import numpy as np
 
 from allpathslg_tpu_torch.eval import sim
+from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
 from allpathslg_tpu_torch.pipeline.rundir import RunDir
+from allpathslg_tpu_torch.pipeline.stages import Pipeline, _not_ported
+
+
+def _log_factory(rd: RunDir):
+    logf = open(rd.file_path("pipeline.log"), "a")
+
+    def log(*a):
+        msg = " ".join(str(x) for x in a)
+        stamp = time.strftime("%Y-%m-%d %H:%M:%S")
+        line = f"{stamp} {msg}"
+        print(line, flush=True)
+        logf.write(line + "\n")
+        logf.flush()
+
+    return log
 
 
 def prepare_sim_inputs(rd: RunDir, genome_size: int, coverage: float,
-                       error_rate: float, read_len: int, seed: int, log):
-    """PrepareAllPathsInputs analog for a simulated fragment library; also
-    stores the truth genome. Same seeds and artifacts as the reference."""
+                       error_rate: float, read_len: int, seed: int, log,
+                       jump_coverage: float = 0.0, jump_insert: int = 3000,
+                       jump_sd: int = 300, jump_libs=None):
+    """PrepareAllPathsInputs analog for simulated data; also stores the
+    truth genome. Same seeds and artifacts as the reference.
+
+    `jump_libs` is an optional list of (insert, sd, coverage) tuples for
+    multi-library jump simulation; it supersedes the single
+    jump_coverage/insert/sd knobs."""
     genome = sim.random_genome(genome_size, seed=seed)
     batch, pairs, _ = sim.simulate_paired_reads(
         genome, coverage=coverage, read_len=read_len,
@@ -26,3 +65,116 @@ def prepare_sim_inputs(rd: RunDir, genome_size: int, coverage: float,
                    pairs=np.asarray(pairs.pairs))
     rd.save_arrays("genome_truth", genome=genome)
     log(f"[prepare] simulated genome={genome_size} reads={batch.n_reads}")
+    if jump_libs is None and jump_coverage > 0:
+        jump_libs = [(jump_insert, jump_sd, jump_coverage)]
+    if not jump_libs:
+        return
+    parts = []
+    for li, (ins, sd, cov) in enumerate(jump_libs):
+        jb, jp, _ = sim.simulate_paired_reads(
+            genome, coverage=cov, read_len=read_len,
+            error_rate=error_rate, insert_mean=ins,
+            insert_sd=sd, outward=True, seed=seed + 2 + 31 * li)
+        parts.append((jb, jp))
+        log(f"[prepare] simulated jump lib {li} reads={jb.n_reads} "
+            f"insert={ins}±{sd}")
+    n_at = 0
+    codes, lens, quals, prs, libids = [], [], [], [], []
+    lmax = max(p[0].codes.shape[1] for p in parts)
+    for li, (jb, jp) in enumerate(parts):
+        c = np.asarray(jb.codes)
+        q = np.asarray(jb.quals)
+        if c.shape[1] < lmax:
+            c = np.pad(c, ((0, 0), (0, lmax - c.shape[1])),
+                       constant_values=4)
+            q = np.pad(q, ((0, 0), (0, lmax - q.shape[1])))
+        codes.append(c)
+        quals.append(q)
+        lens.append(np.asarray(jb.lengths))
+        prs.append(np.asarray(jp.pairs) + n_at)
+        libids.append(np.full(len(jp.pairs), li, np.int32))
+        n_at += jb.n_reads
+    rd.save_arrays("jump_reads_orig",
+                   codes=np.concatenate(codes),
+                   lengths=np.concatenate(lens),
+                   quals=np.concatenate(quals),
+                   pairs=np.concatenate(prs),
+                   lib_id=np.concatenate(libids),
+                   lib_sep=np.array([l[0] for l in jump_libs], np.int32),
+                   lib_sd=np.array([l[1] for l in jump_libs], np.int32))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="ALLPATHS-class assembler, PyTorch + CUDA port")
+    ap.add_argument("--run-dir", required=True)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--sim-genome", type=int, default=0)
+    ap.add_argument("--coverage", type=float, default=50.0)
+    ap.add_argument("--error-rate", type=float, default=0.005)
+    ap.add_argument("--read-len", type=int, default=100)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frag-fastq", nargs="*", default=[])
+    ap.add_argument("--in-libs", default="",
+                    help="in_libs.csv library sheet (not ported)")
+    ap.add_argument("--in-groups", default="",
+                    help="in_groups.csv read-group sheet (not ported)")
+    ap.add_argument("--jump-coverage", type=float, default=0.0)
+    ap.add_argument("--jump-insert", type=int, default=3000)
+    ap.add_argument("--jump-sd", type=int, default=300)
+    ap.add_argument("--jump-libs", default="",
+                    help="multi-library jump spec 'ins:sd:cov,ins:sd:cov,...'"
+                         " (e.g. 3000:300:50,10000:1000:10)")
+    ap.add_argument("--long-jump-libs", default="",
+                    help="long-jump spec 'ins:sd:cov,...' (not ported)")
+    ap.add_argument("--pacbio-coverage", type=float, default=0.0,
+                    help="PacBio long-read coverage (not ported)")
+    ap.add_argument("--k", type=int, default=96)
+    ap.add_argument("overrides", nargs="*", help="KEY=VALUE config overrides")
+    args = ap.parse_args(argv)
+
+    for flag, given in (("--frag-fastq (FASTQ import)", args.frag_fastq),
+                        ("--in-libs/--in-groups (library sheets)",
+                         args.in_libs or args.in_groups),
+                        ("--long-jump-libs (long-jump libraries)",
+                         args.long_jump_libs),
+                        ("--pacbio-coverage (PacBio long reads)",
+                         args.pacbio_coverage > 0)):
+        if given:
+            raise _not_ported(flag)
+
+    over = {}
+    for kv in args.overrides:
+        k, v = kv.split("=", 1)
+        try:
+            v = json.loads(v)
+        except ValueError:
+            pass
+        over[k] = v
+    cfg = AssemblyConfig.from_overrides(K=args.k, **over)
+
+    rd = RunDir(args.run_dir)
+    log = _log_factory(rd)
+    log(f"config: {cfg.to_json()}")
+
+    if not rd.has("frag_reads_orig"):
+        if not args.sim_genome:
+            ap.error("need --sim-genome (or an existing run dir)")
+        jump_libs = ([tuple(float(x) if i == 2 else int(x)
+                            for i, x in enumerate(spec.split(":")))
+                      for spec in args.jump_libs.split(",")]
+                     if args.jump_libs else None)
+        prepare_sim_inputs(rd, args.sim_genome, args.coverage,
+                           args.error_rate, args.read_len, args.seed, log,
+                           jump_coverage=args.jump_coverage,
+                           jump_insert=args.jump_insert,
+                           jump_sd=args.jump_sd, jump_libs=jump_libs)
+
+    pipe = Pipeline(rd, cfg, log, device=args.device)
+    final = pipe.run_full()
+    log(f"final: {final}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

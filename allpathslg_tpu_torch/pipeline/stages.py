@@ -1,5 +1,4 @@
-"""Pipeline stages, the contig slice and the fragment alignment (port of
-allpathslg_tpu/pipeline/stages.py):
+"""Pipeline stages (port of allpathslg_tpu/pipeline/stages.py):
 
   validate_inputs     (ref: ValidateAllPathsInputs)
   remove_dodgy        (ref: RemoveDodgyReads)
@@ -9,28 +8,40 @@ allpathslg_tpu/pipeline/stages.py):
   fill_fragments      (ref: FillFragments)
   unipaths            (ref: CommonPather + Unipather at K=96, localization,
                        cleanup)
-  report              (ref: reporting/ BasicAssemblyStats -> assembly.report)
+  jump_ec             (ref: ErrorCorrectJump)
+  align_jumps         (ref: AlignPairsToHyper for the jump libraries,
+                       SamplePairedReadDistributions)
+  make_scaffolds      (ref: MakeScaffolds + RemodelGaps +
+                       TagCircularScaffolds)
   align_frags         (ref: AlignPairsToHyper for the fragment library)
+  patch_gaps          (ref: PostPatcher)
+  polish              (ref: FixSomeIndels / FixLocal)
+  clean_final         (ref: CleanAssembly)
+  evaluate            (ref: AssemblyAccuracy, EVALUATION=STANDARD/FULL)
+  finalize            (ref: FlattenHKP -> final.assembly.{fasta,efasta})
+  submission_prep     (ref: SubmissionPrep)
+  report              (ref: reporting/ BasicAssemblyStats -> assembly.report)
 
-`run_contig_slice` runs the first eight in order. Each stage writes the
-same named artifacts to the run directory as the reference, byte for
-byte, and resumes from the same manifest. The stages run on the torch
-device the Pipeline is given; the read set is uploaded once and stays
-resident on it across the EC stages (dtypes/devcache).
+`run_contig_slice` runs the first seven and the report in order;
+`run_full` runs the whole DAG with `stage_workers` threads. Each stage
+writes the same named artifacts to the run directory as the reference,
+byte for byte, and resumes from the same manifest. The stages run on the
+torch device the Pipeline is given; the read set is uploaded once and
+stays resident on it across the EC stages (dtypes/devcache).
 
-Not ported yet (see ROADMAP.md): jump_ec, align_jumps, make_scaffolds,
-long_jump_scaffolds, patch_gaps, long_read_patch, assisted, polish,
-clean_final, finalize, submission_prep, evaluate and `run_full`; and the
-options that lead off this slice raise NotImplementedError: a
-multi-device mesh (n_devices > 1), profile_dir, check_mode,
-evaluation="CHEAT" and jump libraries in validate_inputs.
+Not ported yet (see ROADMAP.md): long_jump_scaffolds, long_read_patch and
+assisted raise NotImplementedError, and so does `run_full` on a run
+directory with long-jump or long reads or with an `assist_ref`; so do the
+options a multi-device mesh (n_devices > 1), profile_dir, check_mode and
+evaluation="CHEAT".
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +57,7 @@ from allpathslg_tpu_torch.io import fasta as fio
 from allpathslg_tpu_torch.kmer import count as kcount
 from allpathslg_tpu_torch.kmer import spectrum as kspec
 from allpathslg_tpu_torch.ops import join
+from allpathslg_tpu_torch.ops.cuda import launches
 from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
 from allpathslg_tpu_torch.pipeline.rundir import RunDir
 
@@ -87,6 +99,21 @@ def _pad_batch(arr, batch_size, pad_value):
     pad = batch_size - n % batch_size
     padding = np.full((pad,) + arr.shape[1:], pad_value, dtype=arr.dtype)
     return np.concatenate([arr, padding]), n
+
+
+def _contig_list(u) -> List[np.ndarray]:
+    """Per-contig views of flat contig arrays (bases, offsets)."""
+    offs = u["offsets"]
+    return [u["bases"][offs[i]:offs[i + 1]] for i in range(len(offs) - 1)]
+
+
+def _flatten(contigs) -> Tuple[np.ndarray, np.ndarray]:
+    """(flat uint8 bases, int64 offsets [n + 1]) of a contig list."""
+    bases = (np.concatenate([np.asarray(c) for c in contigs]) if contigs
+             else np.zeros(0, np.uint8))
+    offsets = np.zeros(len(contigs) + 1, np.int64)
+    np.cumsum([len(c) for c in contigs], out=offsets[1:])
+    return bases, offsets
 
 
 class StageTimeout(Exception):
@@ -206,7 +233,8 @@ class Pipeline:
         watch = _StageWatchdog(name, t0, self.cfg.stage_heartbeat_s,
                                self.cfg.stage_timeout_s, self.log)
         try:
-            metrics = fn() or {}
+            with launches.stage(name):
+                metrics = fn() or {}
         finally:
             watch.stop()
         dt = time.time() - t0
@@ -218,27 +246,18 @@ class Pipeline:
 
     def validate_inputs(self):
         cfg, rd = self.cfg, self.rd
-        if rd.has("jump_reads_orig"):
-            raise _not_ported("validate_inputs over jump libraries")
         if cfg.check_mode:
             raise _not_ported("check_mode (spectrum oracle check)")
+        have_jumps = rd.has("jump_reads_orig")
         ih = rd.hash_of("validate", K_VALIDATE,
-                        self._art_hash("frag_reads_orig"), "nojump")
+                        self._art_hash("frag_reads_orig"),
+                        self._art_hash("jump_reads_orig") if have_jumps
+                        else "nojump")
 
-        def fn():
-            a = rd.load_arrays("frag_reads_orig", mmap=True)
-            batch = batch_from_codes(a["codes"], a["lengths"], a.get("quals"))
-            # spectrum-only streaming: the raw table is discarded per merge
-            # pass; K is the reference's 25, independent of K_ec
-            _, spec = self._count_streaming(
-                np.asarray(batch.codes), K_VALIDATE,
-                min_count=1 << 30, spectrum_max_freq=cfg.max_freq)
-            # int64 regardless of path (the device-resident path returns
-            # int32, the merge path int64 — artifact bytes must match)
-            spec = np.asarray(spec, np.int64)
+        def lib_row(spec, n_reads):
             ana = kspec.analyze(spec)
-            frag_row = {
-                "n_reads": int(batch.n_reads),
+            return ana, {
+                "n_reads": int(n_reads),
                 "n_kmers_distinct": int(spec.sum()),
                 "genome_size_est": ana.genome_size_est,
                 "coverage_est": ana.coverage_est,
@@ -246,10 +265,65 @@ class Pipeline:
                 "spectrum_peak": ana.peak,
                 "frac_repetitive": round(ana.frac_repetitive, 4),
             }
+
+        def spectrum(codes):
+            # spectrum-only streaming: the raw table is discarded per merge
+            # pass; K is the reference's 25, independent of K_ec. int64
+            # regardless of path (the device-resident path returns int32,
+            # the merge path int64; artifact bytes must match)
+            _, spec = self._count_streaming(
+                codes, K_VALIDATE, min_count=1 << 30,
+                spectrum_max_freq=cfg.max_freq)
+            return np.asarray(spec, np.int64)
+
+        def fn():
+            a = rd.load_arrays("frag_reads_orig", mmap=True)
+            batch = batch_from_codes(a["codes"], a["lengths"], a.get("quals"))
+            spec = spectrum(np.asarray(batch.codes))
+            ana, frag_row = lib_row(spec, batch.n_reads)
+            arts = {"spectrum": spec}
+            libs = {"frag": frag_row}
             if int(a["lengths"].min()) < cfg.K_ec:
                 raise ValueError("reads shorter than K_ec")
-            rd.save_arrays("kspec_25mer", spectrum=spec)
-            return {**frag_row, "libraries": {"frag": frag_row}}
+
+            if have_jumps:
+                j = rd.load_arrays("jump_reads_orig", mmap=True)
+                jlens = np.asarray(j["lengths"])
+                pairs = np.asarray(j["pairs"]) if "pairs" in j else None
+                lib_id = np.asarray(j["lib_id"]) if "lib_id" in j else None
+                # malformed-pairs contract (ref: ValidateAllPathsInputs
+                # hard-fails on malformed pairs/quals)
+                if pairs is not None and len(pairs):
+                    if pairs.min() < 0 or pairs.max() >= len(jlens):
+                        raise ValueError("jump pairs index out of range")
+                    flat = pairs.reshape(-1)
+                    if len(np.unique(flat)) != len(flat):
+                        raise ValueError("jump read appears in two pairs")
+                if int(jlens.min()) < cfg.K_ec:
+                    raise ValueError("jump reads shorter than K_ec")
+                n_libs = (int(lib_id.max()) + 1
+                          if lib_id is not None and len(lib_id) else 1)
+                for li in range(n_libs):
+                    if lib_id is not None and pairs is not None:
+                        ridx = np.sort(pairs[lib_id == li].reshape(-1))
+                    else:
+                        ridx = np.arange(len(jlens))
+                    jspec = spectrum(np.asarray(j["codes"][ridx]))
+                    jana, row = lib_row(jspec, len(ridx))
+                    arts[f"spectrum_jump{li}"] = jspec
+                    libs[f"jump{li}"] = row
+                    # a jump library whose distinct-kmer mass implies a
+                    # genome a tiny fraction of the frag estimate is
+                    # malformed (duplicate/adapter-dominated or mislabeled)
+                    if (ana.genome_size_est > 0 and
+                            jana.genome_size_est < 0.2 * ana.genome_size_est):
+                        raise ValueError(
+                            f"jump lib {li}: 25-mer spectrum implies genome "
+                            f"{jana.genome_size_est} < 20% of frag estimate "
+                            f"{ana.genome_size_est}: malformed jump library")
+
+            rd.save_arrays("kspec_25mer", **arts)
+            return {**frag_row, "libraries": libs}
 
         return self.run_stage("validate_inputs", ih, ["kspec_25mer.npz"], fn)
 
@@ -407,10 +481,7 @@ class Pipeline:
         def fn():
             a = rd.load_arrays("frag_reads_edit", mmap=True)
             ecfg = cfg.spectrum_ec
-            table_np = np.load(rd.file_path("strong_table.npy"))
-            table = join.hash_table(
-                [torch.from_numpy(table_np[i].astype(np.int64))
-                 .to(self.device) for i in range(table_np.shape[0])])
+            table = self._strong_table()
             db = self._resident_batches("frag_reads_edit")
             lengths, n_real = _pad_batch(a["lengths"], cfg.batch_reads, 0)
             out_l = np.empty_like(lengths)
@@ -637,31 +708,13 @@ class Pipeline:
         eio.write_efasta(self.rd.file_path("unibases.efasta"), recs)
 
     def _align_reads_to_contigs(self, reads_art: str, out_art: str):
-        cfg, rd = self.cfg, self.rd
-        from allpathslg_tpu_torch.align import lookup as alook
-
+        rd = self.rd
         u = rd.load_arrays("unibases")
-        j = rd.load_arrays(reads_art, mmap=True)
-        index = alook.build_index(u["bases"], u["offsets"], K=cfg.K_ec,
-                                  device=self.device)
-        acfg = alook.AlignConfig(K=cfg.K_ec)
-        fbd = torch.from_numpy(u["bases"]).to(self.device)  # upload ONCE
-        codes, n_real = _pad_batch(j["codes"], cfg.batch_reads, 4)
-        lens, _ = _pad_batch(j["lengths"], cfg.batch_reads, 0)
-        C = np.empty(len(codes), np.int32)
-        D = np.empty(len(codes), np.int32)
-        O = np.empty(len(codes), bool)
-        MM = np.empty(len(codes), np.int32)
-        OK = np.empty(len(codes), bool)
-        for s in range(0, len(codes), cfg.batch_reads):
-            e = s + cfg.batch_reads
-            C[s:e], D[s:e], O[s:e], MM[s:e], OK[s:e] = alook.align_reads(
-                index, codes[s:e], lens[s:e], acfg, fbd)
-        rd.save_arrays(out_art, contig=C[:n_real], anchor=D[:n_real],
-                       is_rc=O[:n_real], mismatches=MM[:n_real],
-                       aligned=OK[:n_real])
-        return {"n_aligned": int(OK[:n_real].sum()),
-                "align_rate": round(float(OK[:n_real].mean()), 3)}
+        al = self._align_arrays(u["bases"], u["offsets"],
+                                rd.load_arrays(reads_art, mmap=True))
+        rd.save_arrays(out_art, **al)
+        return {"n_aligned": int(al["aligned"].sum()),
+                "align_rate": round(float(al["aligned"].mean()), 3)}
 
     def align_frags(self):
         """Place filled fragment reads on the contigs (for patching/polish)."""
@@ -674,6 +727,475 @@ class Pipeline:
                                                 "frag_alignlets")
 
         return self.run_stage("align_frags", ih, ["frag_alignlets.npz"], fn)
+
+    def jump_ec(self):
+        """ErrorCorrectJump: trusted-prefix truncation against the strong
+        kmer set of the corrected fragment reads, outie -> innie flip,
+        dedupe."""
+        rd = self.rd
+        from allpathslg_tpu_torch.ec import jump as jec
+
+        ih = rd.hash_of("jump_ec", self._art_hash("jump_reads_orig"),
+                        self._art_hash("frag_reads_edit"))
+
+        def fn():
+            if not rd.has("jump_reads_orig"):
+                return {"skipped": "no jump library"}
+            a = rd.load_arrays("jump_reads_orig", mmap=True)
+            c, q, l, pair_ok, m = jec.error_correct_jumps(
+                a["codes"], a["quals"], a["lengths"], a["pairs"],
+                self._strong_table(), device=self.device)
+            rd.save_arrays("jump_reads_ec", codes=c, quals=q, lengths=l,
+                           pairs=a["pairs"], pair_ok=pair_ok,
+                           lib_id=a.get("lib_id",
+                                        np.zeros(len(a["pairs"]), np.int32)),
+                           lib_sep=a.get("lib_sep", np.array([3000])),
+                           lib_sd=a.get("lib_sd", np.array([300])))
+            return m
+
+        return self.run_stage("jump_ec", ih, ["jump_reads_ec.npz"], fn)
+
+    def align_jumps(self):
+        """AlignPairsToHyper analog: place jump reads on the contig set as
+        alignlets, and estimate each library's insert distribution."""
+        rd = self.rd
+        from allpathslg_tpu_torch.eval import accuracy as eacc
+        from allpathslg_tpu_torch.utils.intdist import IntDistribution
+
+        ih = rd.hash_of("align_jumps", self._art_hash("jump_reads_ec"),
+                        self._art_hash("unibases"))
+
+        def fn():
+            if not rd.has("jump_reads_ec"):
+                return {"skipped": "no jump library"}
+            u = rd.load_arrays("unibases")
+            j = rd.load_arrays("jump_reads_ec", mmap=True)
+            al = self._align_arrays(u["bases"], u["offsets"], j)
+            C, D, O, OK = (al[k] for k in ("contig", "anchor", "is_rc",
+                                           "aligned"))
+            # the true insert distribution PER LIBRARY from same-contig
+            # pairs (ref: SamplePairedReadStats -> IntDistribution per
+            # library), persisted as one lo_i/pmf_i pair per library for
+            # RemodelGaps' MLE. Libraries are split by `lib_id`, as the
+            # reference's stage does (ROADMAP.md Queue 3).
+            lib_id = np.asarray(j.get("lib_id",
+                                      np.zeros(len(j["pairs"]), np.int32)))
+            n_libs = int(lib_id.max()) + 1 if len(lib_id) else 1
+            dist_arrays = {"n_libs": np.array([n_libs])}
+            means, sds = [], []
+            hist0 = np.zeros(0, np.int64)
+            for li in range(n_libs):
+                sel = j["pairs"][lib_id == li]
+                imean, isd, hist = eacc.estimate_insert_stats(
+                    C, D, O, OK, j["lengths"], sel)
+                means.append(round(imean, 1))
+                sds.append(round(isd, 1))
+                if len(hist):
+                    d = IntDistribution.from_histogram(hist).to_arrays()
+                    dist_arrays[f"lo_{li}"] = d["lo"]
+                    dist_arrays[f"pmf_{li}"] = d["pmf"]
+                if li == 0:
+                    hist0 = hist
+            if len(dist_arrays) > 1:
+                rd.save_arrays("jump_distribs", **dist_arrays)
+            rd.save_arrays("jump_alignlets", contig=C, anchor=D, is_rc=O,
+                           mismatches=al["mismatches"], aligned=OK,
+                           insert_hist=hist0)
+            return {"n_aligned": int(OK.sum()),
+                    "align_rate": round(float(OK.mean()), 3),
+                    "insert_mean_est": means[0], "insert_sd_est": sds[0],
+                    "lib_insert_means": means, "lib_insert_sds": sds}
+
+        return self.run_stage("align_jumps", ih, ["jump_alignlets.npz"], fn)
+
+    def _strong_table(self):
+        """The strong K_ec table of find_errors, hashed on the device."""
+        table_np = np.load(self.rd.file_path("strong_table.npy"))
+        return join.hash_table(
+            [torch.from_numpy(table_np[i].astype(np.int64)).to(self.device)
+             for i in range(table_np.shape[0])])
+
+    def _align_arrays(self, bases, offsets, reads) -> Dict[str, np.ndarray]:
+        """Place the reads of artifact arrays `reads` on the contigs
+        (bases, offsets): alignlet arrays contig, anchor, is_rc,
+        mismatches, aligned."""
+        cfg = self.cfg
+        from allpathslg_tpu_torch.align import lookup as alook
+
+        index = alook.build_index(bases, offsets, K=cfg.K_ec,
+                                  device=self.device)
+        acfg = alook.AlignConfig(K=cfg.K_ec)
+        # contig bases upload ONCE
+        fbd = torch.from_numpy(np.asarray(bases)).to(self.device)
+        codes, n_real = _pad_batch(reads["codes"], cfg.batch_reads, 4)
+        lens, _ = _pad_batch(reads["lengths"], cfg.batch_reads, 0)
+        C = np.empty(len(codes), np.int32)
+        D = np.empty(len(codes), np.int32)
+        O = np.empty(len(codes), bool)
+        MM = np.empty(len(codes), np.int32)
+        OK = np.empty(len(codes), bool)
+        for s in range(0, len(codes), cfg.batch_reads):
+            e = s + cfg.batch_reads
+            C[s:e], D[s:e], O[s:e], MM[s:e], OK[s:e] = alook.align_reads(
+                index, codes[s:e], lens[s:e], acfg, fbd)
+        return {"contig": C[:n_real], "anchor": D[:n_real],
+                "is_rc": O[:n_real], "mismatches": MM[:n_real],
+                "aligned": OK[:n_real]}
+
+    def make_scaffolds(self):
+        """MakeScaffolds + RemodelGaps + TagCircularScaffolds."""
+        rd = self.rd
+        from allpathslg_tpu_torch.scaffold import circular as scirc
+        from allpathslg_tpu_torch.scaffold import links as slinks
+        from allpathslg_tpu_torch.scaffold import scaffolder
+        from allpathslg_tpu_torch.scaffold import superb as ssb
+        from allpathslg_tpu_torch.utils.intdist import IntDistribution
+
+        ih = rd.hash_of("scaffolds", self._art_hash("jump_alignlets"),
+                        self._art_hash("unibases"))
+
+        def fn():
+            u = rd.load_arrays("unibases")
+            clens = np.diff(u["offsets"]).astype(np.int64)
+            if not rd.has("jump_alignlets"):
+                scaffolds = [ssb.Superb([i], [False], [], [])
+                             for i in range(len(clens))]
+            else:
+                al = rd.load_arrays("jump_alignlets")
+                j = rd.load_arrays("jump_reads_ec", mmap=True)
+                lib_id = np.asarray(j.get("lib_id",
+                                          np.zeros(len(j["pairs"]), np.int32)))
+                inserts = np.asarray(j["lib_sep"], np.int64).copy()
+                insert_sds = np.asarray(j["lib_sd"], np.int64).copy()
+                # prefer the data-estimated per-library insert stats when
+                # sane
+                am = rd.metrics("align_jumps")
+                ests = am.get("lib_insert_means",
+                              [am.get("insert_mean_est", 0)])
+                est_sds = am.get("lib_insert_sds",
+                                 [am.get("insert_sd_est", 0)])
+                for li in range(min(len(inserts), len(ests))):
+                    if ests[li] and 0.5 * inserts[li] < ests[li] \
+                            < 2 * inserts[li]:
+                        inserts[li] = int(ests[li])
+                        insert_sds[li] = max(int(est_sds[li]), 5)
+                insert = int(inserts[0])
+                insert_sd = int(insert_sds[0])
+                lg = slinks.pair_links(al["contig"], al["anchor"], al["is_rc"],
+                                       al["aligned"], j["lengths"], j["pairs"],
+                                       clens, inserts, insert_sds,
+                                       lib_ids=lib_id)
+                scaffolds, n_broken = scaffolder.make_scaffolds_iterative(
+                    lg, len(clens), clens)
+                # RemodelGaps: MLE against the per-library empirical insert
+                # distributions when the .distribs artifact exists
+                # (ref: RemodelGaps.cc)
+                dists = None
+                if rd.has("jump_distribs"):
+                    da = rd.load_arrays("jump_distribs")
+                    if "n_libs" in da:
+                        dists = []
+                        for li in range(int(da["n_libs"][0])):
+                            if f"lo_{li}" in da:
+                                dists.append(IntDistribution.from_arrays(
+                                    {"lo": da[f"lo_{li}"],
+                                     "pmf": da[f"pmf_{li}"]}))
+                            else:
+                                dists.append(None)
+                    else:  # single-library artifact
+                        dists = [IntDistribution.from_arrays(da)]
+                scaffolds = scaffolder.remodel_gaps(scaffolds, lg, dists)
+                # circularity tags (ref: TagCircularScaffolds)
+                wraps = slinks.wrap_pair_counts(
+                    al["contig"], al["anchor"], al["is_rc"], al["aligned"],
+                    j["lengths"], j["pairs"], clens, insert, insert_sd)
+                circ = scirc.tag_circular(scaffolds, lg, wraps)
+                np.save(rd.file_path("circular_tags.npy"),
+                        np.asarray(circ, dtype=bool))
+            ssb.write_superb(rd.file_path("assembly.superb"), scaffolds)
+            ssb.write_agp(rd.file_path("assembly.agp"), scaffolds, clens)
+            slens = [sb.length(clens) for sb in scaffolds]
+            st = stats.assembly_stats(slens)
+            n_circ = 0
+            if os.path.exists(rd.file_path("circular_tags.npy")):
+                n_circ = int(np.load(rd.file_path("circular_tags.npy")).sum())
+            m = {"n_scaffolds": len(scaffolds),
+                 "scaffold_n50": st["n50"],
+                 "scaffold_total": st["total_bases"],
+                 "n_circular": n_circ}
+            if rd.has("jump_alignlets"):
+                m["n_junctions_broken"] = int(n_broken)
+            return m
+
+        return self.run_stage("make_scaffolds", ih,
+                              ["assembly.superb", "assembly.agp"], fn)
+
+    def long_jump_scaffolds(self):
+        raise _not_ported("long_jump_scaffolds (long-jump libraries)")
+
+    def patch_gaps(self):
+        """PostPatcher: close scaffold junctions with read pileup
+        extensions + banded-DP validation; merged contigs raise contig
+        N50."""
+        rd = self.rd
+        from allpathslg_tpu_torch.asm import patch as apatch
+        from allpathslg_tpu_torch.asm.amb import AmbTable
+        from allpathslg_tpu_torch.scaffold import superb as ssb
+
+        ih = rd.hash_of("patch_gaps", self._art_hash("frag_alignlets"),
+                        self._art_hash("unibases"),
+                        self._art_hash("filled_reads"),
+                        rd.hash_of(str(rd.metrics("make_scaffolds"))))
+
+        def fn():
+            u = rd.load_arrays("unibases")
+            scaffolds = ssb.read_superb(rd.file_path("assembly.superb"))
+            al = rd.load_arrays("frag_alignlets")
+            fr = rd.load_arrays("filled_reads", mmap=True)
+            new_contigs, new_scaffolds, n_closed, pieces = \
+                apatch.patch_scaffold_gaps(
+                    scaffolds, _contig_list(u), fr["codes"], fr["lengths"],
+                    al["contig"], al["anchor"], al["is_rc"], al["aligned"],
+                    device=self.device)
+            # thread diploid ambiguity records through the recomposition
+            # (ref: FlattenHKP)
+            amb = AmbTable.from_arrays(u).from_pieces(pieces)
+            # emit final contig set = contigs referenced by scaffolds
+            used = sorted({c for sb in new_scaffolds for c in sb.contig_ids})
+            remap = {c: i for i, c in enumerate(used)}
+            amb = amb.remap(remap)
+            bases, offsets = _flatten([new_contigs[c] for c in used])
+            for sb in new_scaffolds:
+                sb.contig_ids = [remap[c] for c in sb.contig_ids]
+            rd.save_arrays("contigs_final", bases=bases, offsets=offsets,
+                           **amb.to_arrays())
+            ssb.write_superb(rd.file_path("assembly.superb"), new_scaffolds)
+            ssb.write_agp(rd.file_path("assembly.agp"), new_scaffolds,
+                          np.diff(offsets))
+            return {"n_gaps_closed": int(n_closed),
+                    "n_contigs_final": len(used),
+                    "n_ambiguities_kept": amb.n}
+
+        return self.run_stage("patch_gaps", ih,
+                              ["contigs_final.npz", "assembly.superb",
+                               "assembly.agp"], fn)
+
+    def long_read_patch(self):
+        raise _not_ported("long_read_patch (PacBio long reads)")
+
+    def assisted(self):
+        raise _not_ported("assisted (assisting reference, assist_ref)")
+
+    def polish(self):
+        """FixSomeIndels-style consensus polish of the final contigs."""
+        rd = self.rd
+        from allpathslg_tpu_torch.asm import polish as apol
+        from allpathslg_tpu_torch.asm.amb import AmbTable
+
+        ih = rd.hash_of("polish", self._art_hash("contigs_final"),
+                        self._art_hash("filled_reads"))
+
+        def fn():
+            u = self._final_contigs()
+            fr = rd.load_arrays("filled_reads", mmap=True)
+            # re-place reads on the (patched) contigs
+            m = self._align_arrays(u["bases"], u["offsets"], fr)
+            bases, n_changed = apol.polish_contigs(
+                u["bases"], u["offsets"], fr["codes"], fr["lengths"],
+                m["contig"], m["anchor"], m["is_rc"], m["aligned"])
+            # indel pass (ref: FixSomeIndels): contested-pileup suspects,
+            # banded-DP variant scoring, re-polish substitutions after
+            bases, offsets, n_indel, edit_rows = apol.polish_indels(
+                bases, u["offsets"], fr["codes"], fr["lengths"],
+                m["contig"], m["anchor"], m["is_rc"], m["aligned"],
+                device=self.device)
+            amb = AmbTable.from_arrays(u)
+            if n_indel:
+                amb = amb.shift(edit_rows)
+                m2 = self._align_arrays(bases, offsets, fr)
+                bases, n_changed2 = apol.polish_contigs(
+                    bases, offsets, fr["codes"], fr["lengths"],
+                    m2["contig"], m2["anchor"], m2["is_rc"], m2["aligned"])
+                n_changed += n_changed2
+            else:
+                offsets = u["offsets"]
+            rd.save_arrays("contigs_final", bases=bases, offsets=offsets,
+                           **amb.to_arrays())
+            return {"n_bases_fixed": int(n_changed),
+                    "n_indels_fixed": int(n_indel)}
+
+        return self.run_stage("polish", ih, ["contigs_final.npz"], fn)
+
+    def clean_final(self):
+        """CleanAssembly: drop tiny/contained contigs and scaffolds."""
+        cfg, rd = self.cfg, self.rd
+        from allpathslg_tpu_torch.asm import clean_assembly as aclean
+        from allpathslg_tpu_torch.asm.amb import AmbTable
+        from allpathslg_tpu_torch.scaffold import superb as ssb
+
+        ih = rd.hash_of("clean_final", self._art_hash("contigs_final"))
+
+        def fn():
+            u = self._final_contigs()
+            scaffolds = ssb.read_superb(rd.file_path("assembly.superb"))
+            ccfg = aclean.CleanConfig(
+                min_contig_len=cfg.min_contig_len or 2 * cfg.K)
+            contigs, scaffolds, m, remap = aclean.clean_assembly(
+                _contig_list(u), scaffolds, ccfg)
+            amb = AmbTable.from_arrays(u).remap(remap)
+            bases, offsets = _flatten(contigs)
+            rd.save_arrays("contigs_final", bases=bases, offsets=offsets,
+                           **amb.to_arrays())
+            ssb.write_superb(rd.file_path("assembly.superb"), scaffolds)
+            ssb.write_agp(rd.file_path("assembly.agp"), scaffolds,
+                          np.diff(offsets))
+            return m
+
+        return self.run_stage("clean_final", ih,
+                              ["contigs_final.npz", "assembly.superb"], fn)
+
+    def evaluate(self):
+        """Reference-based accuracy (ref: AssemblyAccuracy/ScaffoldAccuracy,
+        EVALUATION=FULL); runs when a truth genome is present."""
+        cfg, rd = self.cfg, self.rd
+        from allpathslg_tpu_torch.eval import accuracy as eacc
+
+        ih = rd.hash_of("evaluate", self._art_hash("contigs_final"),
+                        self._art_hash("genome_truth"))
+
+        def fn():
+            if cfg.evaluation == "NONE":
+                return {"skipped": "EVALUATION=NONE"}
+            if not rd.has("genome_truth"):
+                return {"skipped": "no reference genome"}
+            u = self._final_contigs()
+            g = rd.load_arrays("genome_truth")["genome"]
+            rep = eacc.evaluate(u["bases"], u["offsets"], g,
+                                device=self.device)
+            rep.update(eacc.base_error_report(u["bases"], u["offsets"], g,
+                                              device=self.device))
+            return rep
+
+        return self.run_stage("evaluate", ih, [], fn)
+
+    def finalize(self):
+        """Final assembly emission: scaffold FASTA + EFASTA
+        (ref: FlattenHKP outputs final.assembly.{fasta,efasta})."""
+        rd = self.rd
+        from allpathslg_tpu_torch.asm.amb import AmbTable
+        from allpathslg_tpu_torch.dtypes.reads import string_from_codes
+        from allpathslg_tpu_torch.io import efasta as eio
+        from allpathslg_tpu_torch.scaffold import superb as ssb
+
+        ih = rd.hash_of("finalize", self._art_hash("unibases"),
+                        self._art_hash("contigs_final"),
+                        rd.hash_of(str(rd.metrics("make_scaffolds"))))
+
+        def fn():
+            u = self._final_contigs()
+            contigs = _contig_list(u)
+            amb = AmbTable.from_arrays(u)
+            scaffolds = ssb.read_superb(rd.file_path("assembly.superb"))
+            recs = []
+            efrecs = []
+            n_amb_out = 0
+            for si, sb in enumerate(scaffolds):
+                seq = ssb.scaffold_sequence(sb, contigs)
+                recs.append((f"scaffold_{si}", seq))
+                # ambiguity records mapped into scaffold coordinates
+                # (ref: FlattenHKP {a,b} emission)
+                blocks = []  # (scaffold_off, kept_len, alt)
+                at = 0
+                for i, cid in enumerate(sb.contig_ids):
+                    clen = len(contigs[cid])
+                    for (off, klen, alt) in amb.per_contig(cid):
+                        if sb.rc[i]:
+                            soff = at + clen - off - klen
+                            alt_s = (3 - np.asarray(alt)[::-1]) % 4
+                        else:
+                            soff = at + off
+                            alt_s = np.asarray(alt)
+                        blocks.append((int(soff), int(klen),
+                                       alt_s.astype(np.uint8)))
+                    at += clen
+                    if i < len(sb.gaps):
+                        at += max(int(sb.gaps[i]), 20)
+                segs = []
+                pos = 0
+                for (soff, klen, alt) in sorted(blocks):
+                    if soff < pos or soff + klen > len(seq):
+                        continue
+                    if soff > pos:
+                        segs.append(string_from_codes(seq[pos:soff]))
+                    segs.append((string_from_codes(seq[soff: soff + klen]),
+                                 string_from_codes(alt)))
+                    n_amb_out += 1
+                    pos = soff + klen
+                if pos < len(seq):
+                    segs.append(string_from_codes(seq[pos:]))
+                efrecs.append((f"scaffold_{si}", segs or [""]))
+            fio.write_fasta(rd.file_path("final.assembly.fasta"), recs)
+            eio.write_efasta(rd.file_path("final.assembly.efasta"), efrecs)
+            return {"n_records": len(recs), "n_ambiguities": int(n_amb_out)}
+
+        return self.run_stage("finalize", ih,
+                              ["final.assembly.fasta", "final.assembly.efasta"],
+                              fn)
+
+    def submission_prep(self):
+        """NCBI-style submission package: renamed, length-filtered contig
+        FASTA + AGP (ref: SubmissionPrep)."""
+        cfg, rd = self.cfg, self.rd
+        from allpathslg_tpu_torch.scaffold import superb as ssb
+
+        ih = rd.hash_of("submission", self._art_hash("contigs_final"),
+                        cfg.min_scaffold_len)
+
+        def fn():
+            u = self._final_contigs()
+            contigs = _contig_list(u)
+            scaffolds = ssb.read_superb(rd.file_path("assembly.superb"))
+            clens = np.diff(u["offsets"])
+            min_len = cfg.min_scaffold_len or cfg.min_contig_len or 2 * cfg.K
+            keep = [sb for sb in scaffolds if sb.length(clens) >= min_len]
+            sub = os.path.join(rd.path, "submission")
+            os.makedirs(sub, exist_ok=True)
+            # renumber contigs in scaffold order (the submission contract)
+            recs, agp_scaffs, used = [], [], []
+            remap = {}
+            for sb in keep:
+                for c in sb.contig_ids:
+                    if c not in remap:
+                        remap[c] = len(recs)
+                        recs.append((f"contig{len(recs) + 1:06d}",
+                                     contigs[c]))
+                        used.append(c)
+            for sb in keep:
+                sb2 = copy.deepcopy(sb)
+                sb2.contig_ids = [remap[c] for c in sb.contig_ids]
+                agp_scaffs.append(sb2)
+            fio.write_fasta(os.path.join(sub, "contigs.fsa"), recs)
+            ssb.write_agp(os.path.join(sub, "assembly.agp"), agp_scaffs,
+                          np.asarray([len(contigs[c]) for c in used]))
+            srecs = [(f"scaffold{si + 1:06d}",
+                      ssb.scaffold_sequence(sb, contigs))
+                     for si, sb in enumerate(keep)]
+            fio.write_fasta(os.path.join(sub, "scaffolds.fsa"), srecs)
+            return {"n_scaffolds_submitted": len(keep),
+                    "n_contigs_submitted": len(recs),
+                    "min_len": int(min_len)}
+
+        return self.run_stage("submission_prep", ih,
+                              ["submission/contigs.fsa",
+                               "submission/assembly.agp",
+                               "submission/scaffolds.fsa"], fn)
+
+    def _final_contigs(self):
+        """contigs_final's arrays once patch_gaps wrote them, else
+        unibases'."""
+        rd = self.rd
+        return rd.load_arrays("contigs_final" if rd.has("contigs_final")
+                              else "unibases")
 
     def _lib_coverage_lines(self, assembly_bases: int) -> List[str]:
         """LibCoverage table (ref: src/paths/reporting/LibCoverage.cc —
@@ -720,8 +1242,7 @@ class Pipeline:
         ih = rd.hash_of("report", self._art_hash("unibases"))
 
         def fn():
-            u = rd.load_arrays("contigs_final") if rd.has("contigs_final") \
-                else rd.load_arrays("unibases")
+            u = self._final_contigs()
             lens = np.diff(u["offsets"])
             min_len = cfg.min_contig_len or 2 * cfg.K
             st = stats.assembly_stats(lens, min_len=min_len)
@@ -777,6 +1298,84 @@ class Pipeline:
         self.fill_fragments()
         self.unipaths()
         return self.report()
+
+    def run_full(self) -> Dict:
+        """Full pipeline: contigs + jump scaffolding + final assembly.
+
+        Independent stages run concurrently in `stage_workers` threads
+        (the `make -j` analog of RunAllPathsLG's Makefile DAG): device work
+        still serializes on the one device, but host compute, file IO and
+        device work overlap (jump EC vs the frag clean/fill chain; frag vs
+        jump alignment). A run directory with long-jump or long reads, or
+        an `assist_ref`, needs stages not ported yet and raises before any
+        stage runs."""
+        rd = self.rd
+        for unported, present in (
+                (self.long_jump_scaffolds, rd.has("long_jump_reads_orig")),
+                (self.long_read_patch, rd.has("long_reads_orig")),
+                (self.assisted, bool(self.cfg.assist_ref))):
+            if present:
+                unported()          # raises NotImplementedError
+        jobs: Dict[str, tuple] = {
+            "validate_inputs": ((), self.validate_inputs),
+            "remove_dodgy": ((), self.remove_dodgy),
+            "precorrect": (("remove_dodgy",), self.precorrect),
+            "find_errors": (("precorrect",), self.find_errors),
+            "clean_reads": (("find_errors",), self.clean_reads),
+            "fill_fragments": (("clean_reads",), self.fill_fragments),
+            "unipaths": (("fill_fragments",), self.unipaths),
+        }
+        if rd.has("jump_reads_orig"):
+            jobs["jump_ec"] = (("find_errors",), self.jump_ec)
+            jobs["align_jumps"] = (("jump_ec", "unipaths"), self.align_jumps)
+            sc_deps = ("align_jumps", "unipaths")
+        else:
+            sc_deps = ("unipaths",)
+        jobs["make_scaffolds"] = (sc_deps, self.make_scaffolds)
+        jobs["align_frags"] = (("unipaths",), self.align_frags)
+        jobs["patch_gaps"] = (("align_frags", "make_scaffolds"),
+                              self.patch_gaps)
+        jobs["polish"] = (("patch_gaps",), self.polish)
+        jobs["clean_final"] = (("polish",), self.clean_final)
+        jobs["finalize"] = (("clean_final",), self.finalize)
+        jobs["submission_prep"] = (("clean_final",), self.submission_prep)
+        jobs["evaluate"] = (("clean_final",), self.evaluate)
+        self._run_dag(jobs, max_workers=self.cfg.stage_workers)
+        return self.report()
+
+    def _run_dag(self, jobs: Dict[str, tuple], max_workers: int = 1):
+        """Topological thread-pool executor over (deps, fn) jobs. With
+        max_workers=1 this is the serial order."""
+        import concurrent.futures as cf
+
+        if max_workers <= 1:
+            done: set = set()
+            while len(done) < len(jobs):
+                ready = [n for n, (deps, _) in jobs.items()
+                         if n not in done and all(d in done for d in deps)]
+                if not ready:
+                    raise RuntimeError("stage DAG cycle")
+                for n in ready:
+                    jobs[n][1]()
+                    done.add(n)
+            return
+        done = set()
+        futures: Dict[str, cf.Future] = {}
+        with cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
+            while len(done) < len(jobs):
+                for n, (deps, fn) in jobs.items():
+                    if (n not in done and n not in futures
+                            and all(d in done for d in deps)):
+                        futures[n] = ex.submit(fn)
+                if not futures:
+                    raise RuntimeError("stage DAG cycle")
+                finished = [n for n, f in futures.items() if f.done()]
+                if not finished:
+                    time.sleep(0.05)
+                    continue
+                for n in finished:
+                    futures.pop(n).result()  # re-raise stage failures
+                    done.add(n)
 
     # ---- helpers ----
 

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch + CUDA port (allpathslg_tpu_torch).
 
-    python3 chip_smoke.py [--genome-size N] [--seed S]
+    python3 chip_smoke.py [--genome-size N] [--full-genome-size N]
+                          [--seed S]
 
 Needs one CUDA GPU (it raises without one) and `nvcc`; it imports nothing
 of JAX or of the JAX package. Phases, each printed as it ends:
 
   1. the card: `nvidia-smi` name and power limit, torch's device name;
-  2. build both Hopper kernels, the radix sort (csrc/radix_sort.cu) and
-     the bit-parallel banded DP (csrc/banded_bp.cu), with nvcc for
-     sm_90a, one nvcc for each, started together;
+  2. build the three Hopper kernels, the radix sort (csrc/radix_sort.cu),
+     the bit-parallel banded DP (csrc/banded_bp.cu) and the general
+     banded DP (csrc/banded_general.cu), with nvcc for sm_90a, one nvcc
+     for each, started together;
   3. sort parity on the card at the flagship's shape (131,072 reads x
      150 bp at K=24: 16,646,144 two-word keys): the kernel against its
      plain PyTorch version, exactly, with many duplicate keys and with
@@ -17,31 +19,50 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      ops/sort.sort_by_words against the same call on the CPU (where it
      takes the plain version); median times of kernel and plain version;
   4. spectrum_step(K=24) on the same batch, against the CPU spectrum;
-  5. banded-DP parity on the card: the kernel against the plain
-     ops/banded.banded_align, exactly (cost and t_end), at (a) the
+  5. bit-parallel banded-DP parity on the card: the kernel against the
+     plain ops/banded.banded_align, exactly (cost and t_end), at (a) the
      align_frags rescue shape (65,536 x 260 x 276, band 8; reads with
      1-2 indels, ragged lengths, infeasible offsets), (b) bands 1 and 15,
      (c) bench.py's DP shape (16,384 x 100 x 140, band 15) and (d) an
      N-bearing batch (against the plain version on the query with code
      4 -> 6); median times of kernel and plain version at (a) and (c);
-  6. the contig slice and align_frags through Pipeline(device="cuda"):
+  6. general banded-DP parity on the card: the kernel against its plain
+     version (ops/banded.banded_align), exactly, at (1) bands 16, 24, 48,
+     96 and 192 at a patch_gaps-like shape (16,384 x 256 x 512, ragged,
+     with q_len = 0 rows and infeasible offsets), (2) sub_cost=2,
+     gap_cost=3 at band 24, (3) bench.py's shape (16,384 x 100 x 140,
+     band 15, the kernel called directly) and (4) an N-bearing batch
+     with no remapping of code 4; median times at (1, band 96) and (3);
+  7. the contig slice and align_frags through Pipeline(device="cuda"):
      prepare_sim_inputs -> validate_inputs -> remove_dodgy -> precorrect
      -> find_errors -> clean_reads -> fill_fragments -> unipaths ->
-     report -> align_frags on a simulated genome (default 4.6 Mb, 100x
-     fragment coverage, 100 bp reads, 0.5 % error, seed 0, batch_reads
-     65536), with each stage's wall time and kernel launches. It checks
-     that the sort kernel ran in validate_inputs, precorrect, find_errors
-     and unipaths and the banded kernel in align_frags; that the 25-mer
-     genome-size estimate is within 20 % of the truth; that corrections
-     were made and the sampled fraction of true 24-mers rises from the
-     input reads to the cleaned reads; that the contigs total within 5 %
-     of the genome with N50 >= 100 kb (half the genome when
+     report -> align_frags on a simulated genome (--genome-size, default
+     1 Mb, 100x fragment coverage, 100 bp reads, 0.5 % error, seed 0,
+     batch_reads 65536), with each stage's wall time and kernel launches.
+     It checks that the sort kernel ran in validate_inputs, precorrect,
+     find_errors and unipaths and the banded kernel in align_frags; that
+     the 25-mer genome-size estimate is within 20 % of the truth; that
+     corrections were made and the sampled fraction of true 24-mers rises
+     from the input reads to the cleaned reads; that the contigs total
+     within 5 % of the genome with N50 >= 100 kb (half the genome when
      --genome-size is below 200 kb); that align_frags aligns >= 90 % of
-     the filled reads; and that assembly.report names the contig N50.
+     the filled reads; and that assembly.report names the contig N50;
+  8. `Pipeline(device="cuda").run_full()` at the README's binding
+     libraries (100x fragment reads of 100 bp at 0.5 % error, 50x jump
+     reads of 3000 +- 300, seed 0, batch_reads 65536, stage_workers 2) on
+     a genome of --full-genome-size (default 4.6 Mb) carrying repeat
+     families like an E. coli chromosome (REPEAT_FAMILIES). It prints each
+     stage's wall time from the manifest and each kernel's launches by
+     stage, and checks that the general kernel ran, in patch_gaps only;
+     that the bit-parallel kernel ran in align_frags and align_jumps; that
+     the jump insert estimate is within 10 % of 3000; that patch_gaps
+     closed a gap; that the final assembly covers >= 95 % of the genome;
+     and that final.assembly.fasta and submission/*.fsa exist.
 
 Any failed check raises, so the exit code is not 0. The line before the
-last is the kernel record {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+last is the kernel record {"kernels": [...]}, whose `launches` are each
+kernel's launches in the two pipeline phases (7 and 8), each counted from
+0 just before its phase; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -101,13 +122,14 @@ def phase_card():
 
 
 def phase_build():
-    """Build both kernels from the checkout's sources, one nvcc each, all
-    started together; then load both libraries."""
+    """Build the kernels from the checkout's sources, one nvcc each, all
+    started together; then load their libraries."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from allpathslg_tpu_torch.ops.cuda import banded_cuda, sort_cuda
+    from allpathslg_tpu_torch.ops.cuda import (banded_cuda,
+                                               banded_general_cuda, sort_cuda)
 
-    mods = (sort_cuda, banded_cuda)
+    mods = (sort_cuda, banded_cuda, banded_general_cuda)
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(), mods))
     for mod, (path, secs) in zip(mods, built):
@@ -293,6 +315,64 @@ def phase_banded(seed: int):
             "plain_ms": min(a[0], a[2])}
 
 
+def phase_banded_general(seed: int):
+    """The general banded-DP kernel against its plain version, exactly
+    (cost and t_end), on the input sets of the module docstring's phase 6;
+    prints the times at set 1's band 96 and at set 3, and returns the
+    record with the former."""
+    from allpathslg_tpu_torch.ops import banded
+    from allpathslg_tpu_torch.ops.cuda import banded_general_cuda as bg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 3)
+    sets = [(f"1: patch-like, band {b}", 16_384, 256, 512, b, 1, 1, False)
+            for b in (16, 24, 48, 96, 192)]
+    sets += [("2: sub_cost=2 gap_cost=3", 16_384, 256, 512, 24, 2, 3, False),
+             ("3: bench.py shape", 16_384, 100, 140, 15, 1, 1, False),
+             ("4: N-bearing, band 96", 16_384, 256, 512, 96, 1, 1, True)]
+    max_err = 0
+    times = {}
+    for label, B, Lq, Lt, band, sc, gc, with_n in sets:
+        q, ql, t, tl, off = dp_problems(rng, B, Lq, Lt, band, with_n)
+        ql[rng.random(B) < 0.02] = 0
+        q = np.where(np.arange(Lq)[None, :] < ql[:, None], q, 4).astype(
+            np.uint8)
+        q, ql, t, tl, off = (torch.from_numpy(x).to(dev)
+                             for x in (q, ql, t, tl, off))
+
+        def kernel():
+            return bg.banded_align_general(q, ql, t, tl, off, band=band,
+                                           sub_cost=sc, gap_cost=gc)
+
+        def plain():
+            return bg.banded_general_plain(q, ql, t, tl, off, band=band,
+                                           sub_cost=sc, gap_cost=gc)
+
+        cost, t_end = kernel()
+        torch.cuda.synchronize()
+        want_c, want_e = plain()
+        err = max(int((cost - want_c).abs().max()),
+                  int((t_end - want_e).abs().max()))
+        check(err == 0, f"general banded kernel != plain version on {label}")
+        max_err = max(max_err, err)
+        found = want_c < banded.BIG
+        say(f"[general] {label}: B={B}, Lq={Lq}, Lt={Lt}, band={band}, "
+            f"costs ({sc},{gc}): kernel == plain (cost and t_end); "
+            f"{int(found.sum())} with an in-band path, "
+            f"{int((ql == 0).sum())} with q_len 0")
+        if label in ("1: patch-like, band 96", "3: bench.py shape"):
+            turns = [median_ms(plain), median_ms(kernel), median_ms(plain),
+                     median_ms(kernel)]
+            times[label[0]] = turns
+            say(f"[general] {label}: median of {TIMING_REPS}, in turns "
+                f"plain/kernel/plain/kernel: plain {turns[0]:.3f} / "
+                f"{turns[2]:.3f} ms, kernel {turns[1]:.3f} / "
+                f"{turns[3]:.3f} ms")
+    t1 = times["1"]
+    return {"max_abs_err": max_err, "ms": min(t1[1], t1[3]),
+            "plain_ms": min(t1[0], t1[2])}
+
+
 def _canonical_kmers(codes: np.ndarray, K: int):
     """(canonical 2-bit packed K-mers uint64 [R, P], valid [R, P])."""
     R, L = codes.shape
@@ -411,9 +491,155 @@ def phase_slice(genome_size: int, seed: int):
     return total
 
 
+# (segment length, copies): an E. coli-like chromosome's repeat families,
+# seven rRNA-operon-like 5 kb copies, ten IS-like 1.3 kb copies and three
+# two-copy 2.5 kb repeats; half the copies lie reverse-complemented
+REPEAT_FAMILIES = ((5000, 7), (1300, 10), (2500, 2), (2500, 2), (2500, 2))
+FULL_STAGES = ("validate_inputs", "remove_dodgy", "precorrect",
+               "find_errors", "clean_reads", "fill_fragments", "unipaths",
+               "jump_ec", "align_jumps", "make_scaffolds", "align_frags",
+               "patch_gaps", "polish", "clean_final", "finalize",
+               "submission_prep", "evaluate", "report")
+
+
+def repeat_genome(size: int, seed: int) -> np.ndarray:
+    """A random genome with REPEAT_FAMILIES: the copies are spread one per
+    slot of size / n_copies, each at a random place in its slot; a family's
+    later copies repeat its first, forward or reverse-complemented."""
+    from allpathslg_tpu_torch.eval import sim
+
+    g = sim.random_genome(size, seed=seed)
+    rng = np.random.default_rng(seed + 1000)
+    copies = [(fi, n) for fi, (n, c) in enumerate(REPEAT_FAMILIES)
+              for _ in range(c)]
+    slot = size // len(copies)
+    src = {}
+    for s, ci in enumerate(rng.permutation(len(copies))):
+        fi, n = copies[ci]
+        at = s * slot + int(rng.integers(0, slot - n))
+        if fi not in src:
+            src[fi] = g[at:at + n].copy()
+            continue
+        seg = src[fi]
+        if rng.random() < 0.5:
+            seg = (3 - seg[::-1]) % 4
+        g[at:at + n] = seg
+    return g
+
+
+INSERT, INSERT_SD = 3000, 300
+
+
+def full_inputs(rd, genome_size: int, seed: int):
+    """Save run_full's inputs in run dir `rd`: the repeat genome, 100x
+    fragment reads and 50x jump reads of INSERT +- INSERT_SD (100 bp, 0.5 %
+    error), from `seed`."""
+    from allpathslg_tpu_torch.eval import sim
+
+    t0 = time.perf_counter()
+    g = repeat_genome(genome_size, seed)
+    fb, fp, _ = sim.simulate_paired_reads(g, coverage=100.0, read_len=100,
+                                          error_rate=0.005, seed=seed + 1)
+    rd.save_arrays("frag_reads_orig", codes=np.asarray(fb.codes),
+                   lengths=np.asarray(fb.lengths), quals=np.asarray(fb.quals),
+                   pairs=np.asarray(fp.pairs))
+    jb, jp, _ = sim.simulate_paired_reads(
+        g, coverage=50.0, read_len=100, error_rate=0.005, insert_mean=INSERT,
+        insert_sd=INSERT_SD, outward=True, seed=seed + 2)
+    rd.save_arrays("jump_reads_orig", codes=np.asarray(jb.codes),
+                   lengths=np.asarray(jb.lengths), quals=np.asarray(jb.quals),
+                   pairs=np.asarray(jp.pairs),
+                   lib_id=np.zeros(len(jp.pairs), np.int32),
+                   lib_sep=np.array([INSERT], np.int32),
+                   lib_sd=np.array([INSERT_SD], np.int32))
+    rd.save_arrays("genome_truth", genome=g)
+    say(f"[full] inputs: genome {genome_size} bp with repeat families "
+        f"{REPEAT_FAMILIES}; {fb.n_reads} fragment reads (100x), "
+        f"{jb.n_reads} jump reads (50x, {INSERT} +- {INSERT_SD}): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_full(genome_size: int, seed: int):
+    """run_full on the card at the binding libraries over a repeat-bearing
+    genome; returns each kernel's launches in the run."""
+    from allpathslg_tpu_torch.eval import stats
+    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
+    from allpathslg_tpu_torch.pipeline.rundir import RunDir
+    from allpathslg_tpu_torch.pipeline.stages import Pipeline
+    from allpathslg_tpu_torch.scaffold import superb
+
+    run_dir = ROOT / "build" / "chip_smoke_full"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    rd = RunDir(str(run_dir))
+    full_inputs(rd, genome_size, seed)
+
+    cfg = AssemblyConfig.from_overrides()
+    pipe = Pipeline(rd, cfg, lambda *a: None, device="cuda")
+    launches.reset()
+    t0 = time.perf_counter()
+    pipe.run_full()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_stage = launches.by_stage()
+    total = {k: launches.count(k) for k in ("radix_sort", "banded_bp",
+                                             "banded_general")}
+    stages = rd.manifest["stages"]
+    for stage in FULL_STAGES:
+        rec = stages[stage]
+        shown = {k: v for k, v in rec["metrics"].items() if k != "libraries"}
+        say(f"[full] {stage}: {rec['elapsed_s']:.1f} s, launches "
+            f"{by_stage.get(stage, {})}; {shown}")
+    say(f"[full] run_full: {wall:.1f} s wall with stage_workers="
+        f"{cfg.stage_workers}; launches {total}")
+
+    check(total["banded_general"] > 0, "run_full never launched the "
+          "general banded kernel")
+    general_stages = {s for s, c in by_stage.items() if "banded_general" in c}
+    check(general_stages == {"patch_gaps"}, f"general kernel launched in "
+          f"{general_stages}, expected patch_gaps only")
+    for stage in ("align_frags", "align_jumps"):
+        check(by_stage.get(stage, {}).get("banded_bp", 0) > 0,
+              f"{stage} never launched the bit-parallel kernel")
+    m = {s: rd.metrics(s) for s in FULL_STAGES}
+    aj = m["align_jumps"]
+    check(abs(aj["insert_mean_est"] - INSERT) <= 0.1 * INSERT,
+          f"jump insert estimate {aj['insert_mean_est']} not within 10% of "
+          f"{INSERT}")
+    sc, pg, ev = m["make_scaffolds"], m["patch_gaps"], m["evaluate"]
+    check(pg["n_gaps_closed"] >= 1, "patch_gaps closed no gap")
+    check(ev["genome_covered_frac"] >= 0.95,
+          f"genome covered {ev['genome_covered_frac']} < 0.95")
+    for name in ("final.assembly.fasta", "submission/contigs.fsa",
+                 "submission/scaffolds.fsa"):
+        path = Path(rd.file_path(name))
+        check(path.exists() and path.stat().st_size > 0, f"{name} missing")
+    rep = m["report"]
+    final = stats.assembly_stats([
+        sb.length(np.diff(rd.load_arrays("contigs_final")["offsets"]))
+        for sb in superb.read_superb(rd.file_path("assembly.superb"))])
+    say(f"[full] align_jumps: align_rate {aj['align_rate']}, insert "
+        f"{aj['insert_mean_est']} +- {aj['insert_sd_est']} (simulated "
+        f"{INSERT} +- {INSERT_SD}); make_scaffolds: {sc['n_scaffolds']} "
+        f"scaffolds, N50 {sc['scaffold_n50']}; gaps closed "
+        f"{pg['n_gaps_closed']}; final assembly: {final['n_contigs']} "
+        f"scaffolds, N50 {final['n50']}, {final['total_bases']} bp; "
+        f"{rep['n_contigs']} contigs, contig N50 {rep['n50']}; "
+        f"evaluate: genome covered {ev['genome_covered_frac']}, misassembly "
+        f"breaks {ev['misassembly_breaks']}, base error rate "
+        f"{ev['base_error_rate']} (sub {ev['sub_rate']}, indel "
+        f"{ev['indel_rate']}); final.assembly.fasta and submission/*.fsa "
+        f"written")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--genome-size", type=int, default=4_600_000)
+    ap.add_argument("--genome-size", type=int, default=1_000_000,
+                    help="genome of the contig-slice phase")
+    ap.add_argument("--full-genome-size", type=int, default=4_600_000,
+                    help="genome of the run_full phase")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -426,16 +652,24 @@ def main(argv=None) -> int:
     record = phase_sort(codes, args.seed)
     phase_spectrum(codes)
     dp_record = phase_banded(args.seed)
-    launches = phase_slice(args.genome_size, args.seed)
+    general_record = phase_banded_general(args.seed)
+    slice_launches = phase_slice(args.genome_size, args.seed)
+    full_launches = phase_full(args.full_genome_size, args.seed)
     say(json.dumps({"kernels": [{
         "name": "radix_sort_u64", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/radix_sort.cu",
         "replaces": "allpathslg_tpu/ops/pallas/sort_pallas.py:178",
-        "launches": launches["sort"], **record}, {
+        "launches": slice_launches["sort"] + full_launches["radix_sort"],
+        **record}, {
         "name": "banded_bp", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/banded_bp.cu",
         "replaces": "allpathslg_tpu/ops/pallas/banded_bp.py:294",
-        "launches": launches["banded"], **dp_record}]}))
+        "launches": slice_launches["banded"] + full_launches["banded_bp"],
+        **dp_record}, {
+        "name": "banded_general", "route": "cuda",
+        "source": "allpathslg_tpu_torch/csrc/banded_general.cu",
+        "replaces": "allpathslg_tpu/ops/pallas/banded_pallas.py:127",
+        "launches": full_launches["banded_general"], **general_record}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

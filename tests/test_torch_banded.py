@@ -26,6 +26,7 @@ from allpathslg_tpu.ops import banded as rbanded  # noqa: E402
 from allpathslg_tpu.ops.pallas import banded_bp as rbp  # noqa: E402
 from allpathslg_tpu_torch.ops import banded as tbanded  # noqa: E402
 from allpathslg_tpu_torch.ops.cuda import banded_cuda  # noqa: E402
+from allpathslg_tpu_torch.ops.cuda import banded_general_cuda  # noqa: E402
 
 torch.set_num_threads(2)
 BIG = 1 << 20
@@ -149,9 +150,10 @@ def test_reference_disagrees_on_query_n_against_pad():
 
 def test_auto_dispatch():
     """A CPU tensor takes banded_align; off the CPU, unit costs with band
-    <= 15 go to the bit-parallel kernel's wrapper and anything else needs
-    the unported general kernel (a tensor on the `meta` device reaches
-    both branches without a card)."""
+    <= 15 go to the bit-parallel kernel's wrapper and band > 15 or
+    non-unit costs to the general kernel's wrapper (a tensor on the `meta`
+    device reaches each wrapper's device check without a card, and
+    raises there); the general wrapper refuses bands above its largest."""
     rng = np.random.default_rng(3)
     arrays = _batch(rng, 16, 30, 40, 16)
     got = _port(tbanded.banded_align_auto, arrays, 16)
@@ -159,15 +161,19 @@ def test_auto_dispatch():
     np.testing.assert_array_equal(got[0], want[0])
     meta = [torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
                         device="meta") for a in arrays]
-    for kw in (dict(band=16), dict(band=8, sub_cost=2),
+    for kw in (dict(band=16), dict(band=192), dict(band=8, sub_cost=2),
                dict(band=8, gap_cost=3)):
-        with pytest.raises(NotImplementedError, match="banded_align_pallas"):
+        with pytest.raises(ValueError, match="banded_align_general: no "
+                                             "kernel for device meta"):
             tbanded.banded_align_auto(*meta, **kw)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
+    with pytest.raises(ValueError, match="banded_align_bp: no kernel for "
+                                         "device meta"):
         tbanded.banded_align_auto(*meta, band=8)
+    cpu = [torch.from_numpy(a) for a in arrays]
     with pytest.raises(ValueError, match="band=16"):
-        banded_cuda.banded_align_bp(*(torch.from_numpy(a) for a in arrays),
-                                    band=16)
+        banded_cuda.banded_align_bp(*cpu, band=16)
+    with pytest.raises(ValueError, match="band=256"):
+        banded_general_cuda._banded_general_cuda(*cpu, 256, 1, 1)
 
 
 @pytest.mark.cuda

@@ -14,15 +14,21 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
     "allpathslg_tpu_torch",
     "allpathslg_tpu_torch.align.lookup",
+    "allpathslg_tpu_torch.align.packalign",
     "allpathslg_tpu_torch.asm.amb",
+    "allpathslg_tpu_torch.asm.clean_assembly",
     "allpathslg_tpu_torch.asm.fill",
     "allpathslg_tpu_torch.asm.localize",
+    "allpathslg_tpu_torch.asm.patch",
+    "allpathslg_tpu_torch.asm.polish",
     "allpathslg_tpu_torch.convert",
     "allpathslg_tpu_torch.dtypes.devcache",
     "allpathslg_tpu_torch.dtypes.packed",
     "allpathslg_tpu_torch.dtypes.reads",
+    "allpathslg_tpu_torch.ec.jump",
     "allpathslg_tpu_torch.ec.precorrect",
     "allpathslg_tpu_torch.ec.spectrum_ec",
+    "allpathslg_tpu_torch.eval.accuracy",
     "allpathslg_tpu_torch.eval.sim",
     "allpathslg_tpu_torch.eval.stats",
     "allpathslg_tpu_torch.graph.cleanup",
@@ -40,6 +46,8 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.models.flagship",
     "allpathslg_tpu_torch.ops.banded",
     "allpathslg_tpu_torch.ops.cuda.banded_cuda",
+    "allpathslg_tpu_torch.ops.cuda.banded_general_cuda",
+    "allpathslg_tpu_torch.ops.cuda.launches",
     "allpathslg_tpu_torch.ops.cuda.nvcc",
     "allpathslg_tpu_torch.ops.cuda.sort_cuda",
     "allpathslg_tpu_torch.ops.join",
@@ -49,15 +57,21 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.pipeline.run",
     "allpathslg_tpu_torch.pipeline.rundir",
     "allpathslg_tpu_torch.pipeline.stages",
+    "allpathslg_tpu_torch.scaffold.circular",
+    "allpathslg_tpu_torch.scaffold.links",
+    "allpathslg_tpu_torch.scaffold.scaffolder",
+    "allpathslg_tpu_torch.scaffold.superb",
     "allpathslg_tpu_torch.utils.intdist",
 ]
 
 REFERENCE_MODULES = [m.replace("allpathslg_tpu_torch", "allpathslg_tpu")
                      for m in PORT_MODULES
-                     if m.split(".")[-1] not in ("convert", "sort_cuda",
-                                                 "banded_cuda", "nvcc")] + [
+                     if m.split(".")[-1] not in (
+                         "convert", "sort_cuda", "banded_cuda",
+                         "banded_general_cuda", "launches", "nvcc")] + [
     "allpathslg_tpu.ops.pallas.sort_pallas",
     "allpathslg_tpu.ops.pallas.banded_bp",
+    "allpathslg_tpu.ops.pallas.banded_pallas",
 ]
 
 
