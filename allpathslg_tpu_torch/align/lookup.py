@@ -75,7 +75,7 @@ class AlignConfig:
 
 
 def build_index(bases: np.ndarray, offsets: np.ndarray, K: int,
-                force_legacy: bool = False, device="cpu") -> SeedIndex:
+                force_legacy: bool = False, device="cuda") -> SeedIndex:
     """bases: uint8 flat contig bases; offsets: int [n+1].
 
     force_legacy keeps the 3-array row layout even under 2^30 bases

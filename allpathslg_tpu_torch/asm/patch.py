@@ -137,7 +137,7 @@ class _DPBatch:
     banded_align_auto sends band <= 15 to the bit-parallel kernel and the
     wider bands of negative junctions to the general one."""
 
-    def __init__(self, cfg: PatchConfig, device="cpu"):
+    def __init__(self, cfg: PatchConfig, device="cuda"):
         self.cfg = cfg
         self.device = device
         self.probs: Dict[int, list] = {}
@@ -195,7 +195,7 @@ def _round_band(b: int) -> int:
 def patch_scaffold_gaps(scaffolds: List[Superb], contigs: List[np.ndarray],
                         codes: np.ndarray, lengths: np.ndarray,
                         al_contig, al_anchor, al_rc, al_ok,
-                        cfg: PatchConfig = PatchConfig(), device="cpu"):
+                        cfg: PatchConfig = PatchConfig(), device="cuda"):
     """Attempt to close every junction of every scaffold; the DP batches
     run on `device`.
 

@@ -160,7 +160,7 @@ def _ins2_variants(t0: np.ndarray, x: int) -> List[Tuple]:
 def polish_indels(flat_bases: np.ndarray, offsets: np.ndarray,
                   codes: np.ndarray, lengths: np.ndarray,
                   al_contig, al_anchor, al_rc, al_ok,
-                  cfg: PolishConfig = PolishConfig(), device="cpu"
+                  cfg: PolishConfig = PolishConfig(), device="cuda"
                   ) -> Tuple[np.ndarray, np.ndarray, int]:
     """Indel repair pass (ref: FixSomeIndels). Returns (new flat bases,
     new offsets, n_indels_fixed, edit_rows) where edit_rows lists

@@ -49,7 +49,7 @@ def flip_reads(codes: torch.Tensor, quals: torch.Tensor,
 
 def error_correct_jumps(codes, quals, lengths, pairs, table,
                         cfg: JumpECConfig = JumpECConfig(),
-                        batch_size: int = 65536, device="cpu"):
+                        batch_size: int = 65536, device="cuda"):
     """Returns (codes, quals, lengths, pair_ok, metrics). Rows are kept
     aligned with the input (dropped reads get length 0). `table` is the
     strong-kmer HashedTable on `device`; reads stream in batches of

@@ -44,7 +44,7 @@ def _windows(seq: np.ndarray, K: int, device):
     return canon, valid, fwd
 
 
-def _genome_kmer_table(genome: np.ndarray, K: int, device="cpu"):
+def _genome_kmer_table(genome: np.ndarray, K: int, device="cuda"):
     """Sorted (canonical kmer -> unique position or -1 if repeated)."""
     canon, valid, fwd = _windows(genome, K, device)
     is_rc = ~bits.lex_eq(canon, fwd)
@@ -64,7 +64,7 @@ def _genome_kmer_table(genome: np.ndarray, K: int, device="cpu"):
 
 def evaluate(contig_bases: np.ndarray, offsets: np.ndarray,
              genome: np.ndarray, cfg: AccuracyConfig = AccuracyConfig(),
-             device="cpu") -> Dict:
+             device="cuda") -> Dict:
     K = cfg.K
     lens = np.diff(offsets)
     n = len(lens)
@@ -167,7 +167,7 @@ def estimate_insert_stats(al_contig, al_anchor, al_rc, al_ok, read_lens,
 def base_error_report(contig_bases: np.ndarray, offsets: np.ndarray,
                       genome: np.ndarray, K: int = 32, window: int = 400,
                       band: int = 16, max_windows: int = 256,
-                      seed: int = 0, device="cpu") -> Dict:
+                      seed: int = 0, device="cuda") -> Dict:
     """Base-level error classification via affine alignment paths (ref:
     AssemblyAccuracy's per-base error report, src/paths/AssemblyAccuracy.cc;
     gap model per src/pairwise_aligners/SmithWatAffine.cc).

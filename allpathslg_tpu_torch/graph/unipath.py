@@ -161,22 +161,20 @@ def _order_phase(head, dist):
 
 
 def _as_words(words, device) -> list:
-    return [w.long() if torch.is_tensor(w)
+    return [w.long().to(device) if torch.is_tensor(w)
             else torch.from_numpy(np.asarray(w).astype(np.int64)).to(device)
             for w in words]
 
 
 def build_unipaths(table_words, K: int, min_count: int = 2, counts=None,
-                   with_graph: bool = False, with_placement: bool = False):
+                   with_graph: bool = False, with_placement: bool = False,
+                   device="cuda"):
     """Host entry point: kmer table (sorted canonical, possibly padded with
     sentinels + counts) -> unipaths with base sequences (and optionally
     the oriented unipath adjacency graph and the kmer placement).
 
     table_words: W word arrays (tensors, or uint32 numpy); counts: the
-    table's counts (tensor or numpy) or None. The work runs on the device
-    of the word tensors (the CPU for numpy words)."""
-    device = (table_words[0].device if torch.is_tensor(table_words[0])
-              else torch.device("cpu"))
+    table's counts (tensor or numpy) or None. The work runs on `device`."""
     tw = _as_words(table_words, device)
     counts_f = None
     if counts is not None:

@@ -617,7 +617,8 @@ class Pipeline:
             t0 = time.perf_counter()
             ups, graph, placement = unipath.build_unipaths(
                 ck_acc.words, cfg.K, min_count=cfg.min_kmer_count,
-                counts=ck_acc.counts, with_graph=True, with_placement=True)
+                counts=ck_acc.counts, with_graph=True, with_placement=True,
+                device=self.device)
             self.log(f"  [unipaths] condense: "
                      f"{time.perf_counter() - t0:.1f}s ({ups.n} unipaths)")
             # localization: path the filled reads (= insert walks) through

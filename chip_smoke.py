@@ -17,7 +17,12 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      plain PyTorch version, exactly, with many duplicate keys and with
      sentinels; keys of one and three words and an int32 payload through
      ops/sort.sort_by_words against the same call on the CPU (where it
-     takes the plain version); median times of kernel and plain version;
+     takes the plain version); the adversarial keys of SORT_CASES at 2**20
+     keys and at 1 key (histogram kernel against its plain version, the
+     passes planned, the sort), and 0 keys; then at 16,646,144, 5,046,272
+     (one count_reads batch of 65,536 x 100 bp) and 65,536 keys, the
+     passes planned, the bytes moved against the LSD floor, and median
+     times in turns of plain version, kernel and torch.sort;
   4. spectrum_step(K=24) on the same batch, against the CPU spectrum;
   5. bit-parallel banded-DP parity on the card: the kernel against the
      plain ops/banded.banded_align, exactly (cost and t_end), at (a) the
@@ -62,7 +67,10 @@ of JAX or of the JAX package. Phases, each printed as it ends:
 Any failed check raises, so the exit code is not 0. The line before the
 last is the kernel record {"kernels": [...]}, whose `launches` are each
 kernel's launches in the two pipeline phases (7 and 8), each counted from
-0 just before its phase; the last line is {"ok": true, "device": {...}}.
+0 just before its phase, and whose `bound_ms` is the least time of the
+timed call: its bytes over 3.35 TB/s against its integer operations
+(counted from the kernel's source for the DP kernels) over the card's
+int32 rate; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -81,6 +89,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP_READS, FLAGSHIP_LEN, FLAGSHIP_K = 131_072, 150, 24
 TIMING_REPS = 10
+# Peaks for the bounds (H100 SXM datasheet, at 700 W):
+# device memory 3.35 TB/s; int32 operations at 64 lanes a clock on each SM
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM = 64
 
 
 def say(*a):
@@ -108,17 +120,38 @@ def median_ms(fn, reps: int = TIMING_REPS) -> float:
     return float(np.median(times))
 
 
-def phase_card():
+def nvidia_smi(query: str) -> str:
     smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    say(card)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_card():
+    """Prints the card; returns (torch's name for it, its peak int32
+    operations a second: SMs x 64 lanes x the largest SM clock)."""
+    say(nvidia_smi("name,power.limit"))
     name = torch.cuda.get_device_name(0)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
     say(f"[card] torch device: {name}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
-    return card, name
+        f"CUDA {torch.version.cuda}; {sms} SMs at up to {clock_mhz:.0f} MHz: "
+        f"{int_rate / 1e12:.2f} T int32 operations/s")
+    return name, int_rate
+
+
+def dp_bound(q, ql, t, ops_per_row: int, int_rate: float):
+    """(bound ms, "bytes" or "operations") of a banded-DP call: its bytes
+    (q and t read once, q_len, t_len and offset in, cost and t_end out)
+    over the memory rate, against the rows this batch's q_len asks for
+    times ops_per_row over the int32 rate."""
+    n_bytes = q.numel() + t.numel() + 5 * 4 * q.shape[0]
+    rows = int(torch.where((ql >= 1) & (ql <= q.shape[1]), ql, 0).sum())
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = rows * ops_per_row / int_rate * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
 def phase_build():
@@ -145,8 +178,81 @@ def flagship_codes(seed: int) -> np.ndarray:
     return codes
 
 
+# Adversarial key sets for the sort, made by adversarial_sort_keys;
+# tests/test_torch_sort.py runs the same cases on the CPU
+SORT_CASES = ("k24_sentinels", "ff_digits_before_ones", "all_ones",
+              "all_equal", "ones_and_one_value", "u32_with_ffffffff",
+              "random64")
+ONES64 = np.uint64(2**64 - 1)
+FF_DIGITS = np.uint64(0xFFFFFFFFFFFF0000)   # a K=24 key of all-T bases
+
+
+def adversarial_sort_keys(case: str, n: int, seed: int):
+    """(uint64 keys [n], key_bits, passes the plan must have) of one case."""
+    rng = np.random.default_rng(seed)
+    k24 = rng.integers(0, 2**48, n, dtype=np.uint64) << np.uint64(16)
+    if case == "k24_sentinels":            # the flagship's keys: 48 bits
+        k24[rng.random(n) < 0.002] = ONES64
+        return k24, 64, 6
+    if case == "ff_digits_before_ones":    # planned digits all 0xFF
+        at = 2 * rng.choice(n // 2, min(n // 2, max(1, n // 500)),
+                            replace=False)
+        k24[at] = FF_DIGITS
+        k24[at + 1] = ONES64
+        return k24, 64, 6
+    if case == "all_ones":
+        return np.full(n, ONES64), 64, 0
+    if case == "all_equal":
+        return np.full(n, np.uint64(0x0123456789ABCDEF)), 64, 0
+    if case == "ones_and_one_value":
+        u = np.full(n, FF_DIGITS)
+        u[rng.random(n) < 0.5] = ONES64
+        return u, 64, 1
+    if case == "u32_with_ffffffff":
+        u = rng.integers(0, 2**32, n, dtype=np.uint64)
+        u[rng.random(n) < 0.1] = np.uint64(0xFFFFFFFF)
+        return u, 32, 4
+    if case == "random64":
+        u = rng.integers(0, 2**64, n, dtype=np.uint64)
+        u[rng.random(n) < 0.3] = u[:1]                # ties test stability
+        return u, 64, 8
+    raise ValueError(case)
+
+
+def batch_keys(n_reads: int, read_len: int, seed: int) -> torch.Tensor:
+    """The K=24 keys (w0 << 32 | w1, sentinels for windows with an N) of a
+    batch of random reads with 0.2 % N bases, on the card."""
+    from allpathslg_tpu_torch.kmer import kmerize
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (n_reads, read_len)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.002] = 4
+    canon, valid = kmerize.kmer_windows(torch.from_numpy(codes).cuda(),
+                                        FLAGSHIP_K)
+    flat, _ = kmerize.flatten_kmers(canon, valid, FLAGSHIP_K)
+    return (flat[0] << 32) | flat[1]
+
+
+def sort_lsd_bytes(n: int, passes: int) -> int:
+    """Device-memory bytes of the kernel's design: one 8 B histogram read,
+    20 B for the first pass (key in; key and index out), 24 B for each
+    later one (the index is read too)."""
+    return n * (8 + 20 + 24 * (passes - 1)) if passes else 8 * n
+
+
+def sort_err(got, want) -> int:
+    """Largest absolute difference of keys and permutation (0: equal)."""
+    if got[0].numel() != want[0].numel():
+        return 1 << 62
+    if got[0].numel() == 0:
+        return 0
+    return max(int((got[0] - want[0]).abs().max()),
+               int((got[1].long() - want[1].long()).abs().max()))
+
+
 def phase_sort(codes: np.ndarray, seed: int):
-    """Kernel vs plain version at the flagship shape; returns the record."""
+    """Kernel vs plain version at the flagship shape, on adversarial keys
+    and at three sizes in turns with torch.sort; returns the record."""
     from allpathslg_tpu_torch.kmer import kmerize
     from allpathslg_tpu_torch.ops import sort as ops_sort
     from allpathslg_tpu_torch.ops.cuda import sort_cuda
@@ -164,15 +270,17 @@ def phase_sort(codes: np.ndarray, seed: int):
            torch.from_numpy(rng.integers(0, 16, n).astype(np.int64)
                             << 16).to(dev)]
     max_err = 0
+
+    def held(keys, key_bits, what):
+        nonlocal max_err
+        err = sort_err(sort_cuda.radix_sort(keys, key_bits),
+                       sort_cuda.radix_sort_plain(keys, key_bits))
+        check(err == 0, f"kernel != plain sort on {what}")
+        max_err = max(max_err, err)
+
     for label, words in (("flagship K=24 keys with sentinels", flat),
                          ("duplicate-heavy keys", dup)):
-        key = (words[0] << 32) | words[1]
-        got, gperm = sort_cuda.radix_sort(key, 64)
-        want, wperm = sort_cuda.radix_sort_plain(key, 64)
-        err = max(int((got - want).abs().max()),
-                  int((gperm.long() - wperm.long()).abs().max()))
-        check(err == 0, f"kernel != plain sort on {label}")
-        max_err = max(max_err, err)
+        held((words[0] << 32) | words[1], 64, label)
         say(f"[sort] {label}: {n} keys, kernel == plain (keys and "
             f"stable permutation)")
 
@@ -191,16 +299,71 @@ def phase_sort(codes: np.ndarray, seed: int):
         say(f"[sort] {label} keys + int32 payload: {n} keys, "
             f"kernel == plain version")
 
+    # adversarial keys: the histogram kernel against its plain version,
+    # the planned passes, and the sort, exactly
+    for case in SORT_CASES:
+        for m in (1 << 20, 1):
+            u, key_bits, want = adversarial_sort_keys(case, m,
+                                                      seed + len(case))
+            keys = torch.from_numpy(u.view(np.int64)).to(dev)
+            hist, n_ones = sort_cuda.digit_histogram(keys, key_bits)
+            p_hist, p_ones = sort_cuda.digit_histogram_plain(keys, key_bits)
+            check(np.array_equal(hist, p_hist) and n_ones == p_ones,
+                  f"histogram kernel != plain on {case}, n={m}")
+            shifts = sort_cuda.plan_passes(hist, n_ones, m, key_bits)
+            check(len(shifts) == (want if m > 1 else 0),
+                  f"{case}: planned {shifts}, want {want} passes")
+            held(keys, key_bits, f"{case}, n={m}")
+        say(f"[sort] adversarial {case}: {1 << 20} and 1 keys of {key_bits} "
+            f"bits, {want} passes planned; histogram and sort == plain")
+    held(torch.empty(0, dtype=torch.int64, device=dev), 64, "0 keys")
+    say("[sort] 0 keys: empty result, as the plain version's")
+
+    # in turns: plain, kernel, torch.sort, torch.sort, kernel, plain
     key = (flat[0] << 32) | flat[1]
-    plain_ms = median_ms(lambda: sort_cuda.radix_sort_plain(key, 64))
-    kernel_ms = median_ms(lambda: sort_cuda.radix_sort(key, 64))
-    plain_ms_2 = median_ms(lambda: sort_cuda.radix_sort_plain(key, 64))
-    kernel_ms_2 = median_ms(lambda: sort_cuda.radix_sort(key, 64))
-    say(f"[sort] {n} K=24 keys, median of {TIMING_REPS}, in turns "
-        f"plain/kernel/plain/kernel: plain {plain_ms:.3f} / "
-        f"{plain_ms_2:.3f} ms, kernel {kernel_ms:.3f} / {kernel_ms_2:.3f} ms")
-    return {"max_abs_err": max_err, "ms": min(kernel_ms, kernel_ms_2),
-            "plain_ms": min(plain_ms, plain_ms_2)}
+    sizes = (("flagship 131,072 x 150 bp", key),
+             ("one count_reads batch, 65,536 x 100 bp",
+              batch_keys(65_536, 100, seed + 4)),
+             ("small", key[:65_536].clone()))
+    check(sizes[1][1].numel() == 5_046_272,
+          f"batch key count {sizes[1][1].numel()}")
+    record = {}
+    for label, k in sizes:
+        m = k.numel()
+        hist, n_ones = sort_cuda.digit_histogram(k, 64)
+        check(np.array_equal(hist, sort_cuda.digit_histogram_plain(k, 64)[0]),
+              f"histogram kernel != plain at {label}")
+        passes = len(sort_cuda.plan_passes(hist, n_ones, m, 64))
+        held(k, 64, label)
+        flipped = k ^ (-(1 << 63))
+
+        def plain():
+            return sort_cuda.radix_sort_plain(k, 64)
+
+        def kernel():
+            return sort_cuda.radix_sort(k, 64)
+
+        def library():
+            return torch.sort(flipped, stable=True)
+
+        t = [median_ms(f) for f in (plain, kernel, library, library, kernel,
+                                    plain)]
+        kern, lib, pl = min(t[1], t[4]), min(t[2], t[3]), min(t[0], t[5])
+        floor_ms = sort_lsd_bytes(m, passes) / HBM_BYTES_PER_S * 1e3
+        bound_ms = 20 * m / HBM_BYTES_PER_S * 1e3
+        say(f"[sort] {label}: {m} keys, {n_ones} all-ones; median of "
+            f"{TIMING_REPS} in turns: plain {t[0]:.3f} / {t[5]:.3f} ms, "
+            f"kernel {t[1]:.3f} / {t[4]:.3f} ms, torch.sort {t[2]:.3f} / "
+            f"{t[3]:.3f} ms; kernel {'beats' if kern < lib else 'LOSES TO'} "
+            f"torch.sort")
+        say(f"[sort] {label}: {passes} passes planned, "
+            f"{sort_lsd_bytes(m, passes) / m:.0f} B/key, LSD floor "
+            f"{floor_ms:.4f} ms = {100 * floor_ms / kern:.1f} % of the "
+            f"kernel's time; bound (20 B/key) {bound_ms:.4f} ms")
+        if not record:
+            record = {"ms": kern, "plain_ms": pl, "library_ms": lib,
+                      "bound_ms": bound_ms, "bound_by": "bytes"}
+    return {"max_abs_err": max_err, **record}
 
 
 def phase_spectrum(codes: np.ndarray):
@@ -261,7 +424,18 @@ def dp_problems(rng, B: int, Lq: int, Lt: int, band: int,
     return q, q_len, t, t_len, offset
 
 
-def phase_banded(seed: int):
+# Integer operations a DP row needs, counted from the kernels' sources. The
+# bit-parallel row (csrc/banded_bp.cu): the recurrence of its header, 25
+# (X 2, the carries 4, Z 2, P' and M' 14, s0 3), and the Eq window's slide,
+# 16 (4 plane shifts, 4 x compare-shift-or for the new column). The
+# general DP, per band slot of a row (csrc/banded_general.cu): diag 3 (compare,
+# select, add), up 1, their min 1, the closure 4 (offset, running min,
+# add back, min); index and edge bookkeeping is not counted.
+BP_OPS_PER_ROW = 25 + 16
+GENERAL_OPS_PER_SLOT = 9
+
+
+def phase_banded(seed: int, int_rate: float):
     """The bit-parallel banded-DP kernel against its plain version,
     exactly (cost and t_end), at the align_frags rescue shape, at bands 1
     and 15, at bench.py's DP shape, and on an N-bearing batch (compared
@@ -305,17 +479,19 @@ def phase_banded(seed: int):
 
             turns = [median_ms(plain), median_ms(kernel), median_ms(plain),
                      median_ms(kernel)]
-            times[label[0]] = turns
+            bound = dp_bound(q, ql, t, BP_OPS_PER_ROW, int_rate)
+            times[label[0]] = turns, bound
             say(f"[banded] {label}: median of {TIMING_REPS}, in turns "
                 f"plain/kernel/plain/kernel: plain {turns[0]:.3f} / "
                 f"{turns[2]:.3f} ms, kernel {turns[1]:.3f} / "
-                f"{turns[3]:.3f} ms")
-    a = times["a"]
+                f"{turns[3]:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]}")
+    a, bound = times["a"]
     return {"max_abs_err": max_err, "ms": min(a[1], a[3]),
-            "plain_ms": min(a[0], a[2])}
+            "plain_ms": min(a[0], a[2]), "library_ms": None,
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
-def phase_banded_general(seed: int):
+def phase_banded_general(seed: int, int_rate: float):
     """The general banded-DP kernel against its plain version, exactly
     (cost and t_end), on the input sets of the module docstring's phase 6;
     prints the times at set 1's band 96 and at set 3, and returns the
@@ -363,14 +539,17 @@ def phase_banded_general(seed: int):
         if label in ("1: patch-like, band 96", "3: bench.py shape"):
             turns = [median_ms(plain), median_ms(kernel), median_ms(plain),
                      median_ms(kernel)]
-            times[label[0]] = turns
+            bound = dp_bound(q, ql, t, (2 * band + 1) * GENERAL_OPS_PER_SLOT,
+                             int_rate)
+            times[label[0]] = turns, bound
             say(f"[general] {label}: median of {TIMING_REPS}, in turns "
                 f"plain/kernel/plain/kernel: plain {turns[0]:.3f} / "
                 f"{turns[2]:.3f} ms, kernel {turns[1]:.3f} / "
-                f"{turns[3]:.3f} ms")
-    t1 = times["1"]
+                f"{turns[3]:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]}")
+    t1, bound = times["1"]
     return {"max_abs_err": max_err, "ms": min(t1[1], t1[3]),
-            "plain_ms": min(t1[0], t1[2])}
+            "plain_ms": min(t1[0], t1[2]), "library_ms": None,
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def _canonical_kmers(codes: np.ndarray, K: int):
@@ -646,13 +825,13 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device; this script only runs "
                          "on a GPU")
     sys.path.insert(0, str(ROOT))
-    card, name = phase_card()
+    name, int_rate = phase_card()
     phase_build()
     codes = flagship_codes(args.seed)
     record = phase_sort(codes, args.seed)
     phase_spectrum(codes)
-    dp_record = phase_banded(args.seed)
-    general_record = phase_banded_general(args.seed)
+    dp_record = phase_banded(args.seed, int_rate)
+    general_record = phase_banded_general(args.seed, int_rate)
     slice_launches = phase_slice(args.genome_size, args.seed)
     full_launches = phase_full(args.full_genome_size, args.seed)
     say(json.dumps({"kernels": [{

@@ -1,5 +1,6 @@
 """The port imports torch and never jax; the reference never imports torch;
-chip_smoke.py refuses to run without a CUDA device."""
+chip_smoke.py refuses to run without a CUDA device; the port's functions
+that take a device default to the card."""
 
 import os
 import shutil
@@ -120,3 +121,25 @@ def test_chip_smoke_fails_without_cuda_or_package(tmp_path, alone):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("module,name", [
+    ("align.lookup", "build_index"),
+    ("asm.polish", "polish_indels"),
+    ("asm.patch", "_DPBatch"),
+    ("asm.patch", "patch_scaffold_gaps"),
+    ("ec.jump", "error_correct_jumps"),
+    ("eval.accuracy", "_genome_kmer_table"),
+    ("eval.accuracy", "evaluate"),
+    ("eval.accuracy", "base_error_report"),
+    ("graph.unipath", "build_unipaths"),
+])
+def test_entry_points_default_to_the_card(module, name):
+    """The port's functions that take a device run on the card unless the
+    caller asks for the CPU."""
+    import importlib
+    import inspect
+
+    fn = getattr(importlib.import_module(f"allpathslg_tpu_torch.{module}"),
+                 name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -73,7 +73,8 @@ def _index_arrays(ix):
 def test_build_index_matches_reference(setup, legacy):
     _, bases, offsets, _, _ = setup
     ref = rlookup.build_index(bases, offsets, K=24, force_legacy=legacy)
-    port = tlookup.build_index(bases, offsets, K=24, force_legacy=legacy)
+    port = tlookup.build_index(bases, offsets, K=24, force_legacy=legacy,
+                                device="cpu")
     assert (port.packed is None) == legacy
     assert port.shift == ref.shift and port.K == ref.K
     np.testing.assert_array_equal(port.contig_lens, ref.contig_lens)
@@ -90,7 +91,8 @@ def test_build_index_matches_reference(setup, legacy):
 def _align_both(setup, codes, lengths, cfg_kw, legacy=False):
     _, bases, offsets, _, _ = setup
     ref_ix = rlookup.build_index(bases, offsets, K=24, force_legacy=legacy)
-    port_ix = tlookup.build_index(bases, offsets, K=24, force_legacy=legacy)
+    port_ix = tlookup.build_index(bases, offsets, K=24, force_legacy=legacy,
+                                   device="cpu")
     want = rlookup.align_reads(ref_ix, codes, lengths,
                                rlookup.AlignConfig(**cfg_kw), bases)
     got = tlookup.align_reads(port_ix, codes, lengths,
@@ -160,7 +162,7 @@ def test_reference_index_converts(setup):
 def test_garbage_reads_unaligned(setup):
     _, bases, offsets, _, _ = setup
     junk = np.random.default_rng(5).integers(0, 4, (64, L)).astype(np.uint8)
-    ix = tlookup.build_index(bases, offsets, K=24)
+    ix = tlookup.build_index(bases, offsets, K=24, device="cpu")
     ok = tlookup.align_reads(ix, junk, np.full(64, L, np.int32),
                              tlookup.AlignConfig(), bases)[4]
     assert ok.sum() == 0

@@ -178,7 +178,7 @@ def test_error_correct_jumps(genome):
     port = tjump.error_correct_jumps(
         codes, quals, lens, pairs,
         tjoin.hash_table([torch.from_numpy(w.astype(np.int64))
-                          for w in words]), batch_size=1024)
+                          for w in words]), batch_size=1024, device="cpu")
     for r, t in zip(ref[:4], port[:4]):
         assert r.dtype == t.dtype and np.array_equal(r, t)
     assert ref[4] == port[4]
@@ -239,7 +239,7 @@ def test_patch_scaffold_gaps(contigs, frag_alignlets):
     try:
         port = tpatch.patch_scaffold_gaps(
             [TSuperb(list(range(5)), list(FLIPS), list(GAPS), list(DEVS))],
-            *args)
+            *args, device="cpu")
     finally:
         tbanded.banded_align_auto = orig
     assert len(ref[0]) == len(port[0])
@@ -275,7 +275,7 @@ def test_polish(genome):
     tb, tn = tpolish.polish_contigs(contig, offs, codes, lens, *al)
     assert rn == tn > 0 and np.array_equal(rb, tb)
     ref = rpolish.polish_indels(rb, offs, codes, lens, *al)
-    port = tpolish.polish_indels(tb, offs, codes, lens, *al)
+    port = tpolish.polish_indels(tb, offs, codes, lens, *al, device="cpu")
     assert np.array_equal(ref[0], port[0])
     assert np.array_equal(ref[1], port[1])
     assert ref[2:] == port[2:]
@@ -312,7 +312,7 @@ def test_genome_kmer_table(genome):
     g = genome.copy()
     g[20_000:20_500] = g[3_000:3_500]     # repeated kmers hold position -1
     ref = racc._genome_kmer_table(g, 32)
-    port = tacc._genome_kmer_table(g, 32)
+    port = tacc._genome_kmer_table(g, 32, device="cpu")
     for r, t in zip(ref[0] + [ref[1], ref[2]], port[0] + [port[1], port[2]]):
         assert np.array_equal(np.asarray(r).astype(np.int64),
                               t.numpy().astype(np.int64))
@@ -327,10 +327,11 @@ def test_evaluate_and_base_errors(genome, contigs):
     err[::97] = (err[::97] + 1) % 4
     bases, offs = _flat([contigs[0], contigs[1], err, chim])
     ref = racc.evaluate(bases, offs, genome)
-    port = tacc.evaluate(bases, offs, genome)
+    port = tacc.evaluate(bases, offs, genome, device="cpu")
     assert ref == port and port["misassembly_breaks"] >= 1
     ref = racc.base_error_report(bases, offs, genome, max_windows=24)
-    port = tacc.base_error_report(bases, offs, genome, max_windows=24)
+    port = tacc.base_error_report(bases, offs, genome, max_windows=24,
+                                  device="cpu")
     assert ref == port and port["sub_rate"] > 0
 
 

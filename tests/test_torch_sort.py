@@ -5,8 +5,10 @@ radix sort; it must equal the reference's stable `lax.sort`
 (ops/sort.sort_by_words), its key-only counting sort (kmer/count.
 count_sorted), the Pallas bitonic kernel it replaces (sort_two_words,
 interpret mode, as tests/test_sort_pallas.py runs it) and np.lexsort —
-exactly, since every value is an integer. The `cuda`-marked case holds the
-kernel against the plain version on a card and skips without one.
+exactly, since every value is an integer. The pass plan of the kernel
+(plan_passes) is held here through a plain emulation of its passes on
+chip_smoke.py's adversarial keys. The `cuda`-marked cases hold the kernel
+against the plain version on a card and skip without one.
 """
 
 import numpy as np
@@ -24,6 +26,7 @@ from allpathslg_tpu_torch.kmer import count as tcount  # noqa: E402
 from allpathslg_tpu_torch.ops import segmented as tseg  # noqa: E402
 from allpathslg_tpu_torch.ops import sort as tsort  # noqa: E402
 from allpathslg_tpu_torch.ops.cuda import sort_cuda  # noqa: E402
+from chip_smoke import SORT_CASES, adversarial_sort_keys  # noqa: E402
 
 torch.set_num_threads(2)
 SENT = 0xFFFFFFFF
@@ -145,6 +148,59 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
                                          device="meta"), 64)
 
 
+def _lsd_by_plan(keys, key_bits: int, ones_in: str):
+    """The kernel's algorithm in plain torch: plan_passes over the plain
+    histogram, one stable sort per planned 8-bit digit, and all-ones keys
+    in a 257th bucket in the last pass only ("last") or in every pass
+    ("every", the kernel's rule)."""
+    hist, n_ones = sort_cuda.digit_histogram_plain(keys, key_bits)
+    shifts = sort_cuda.plan_passes(hist, n_ones, keys.numel(), key_bits)
+    ones = sort_cuda.all_ones(key_bits)
+    cur, perm = keys, torch.arange(keys.numel())
+    for j, s in enumerate(shifts):
+        bucket = (cur >> s) & 0xFF
+        if ones_in == "every" or j == len(shifts) - 1:
+            bucket = torch.where(cur == ones, 256, bucket)
+        _, p = torch.sort(bucket, stable=True)
+        cur, perm = cur[p], perm[p]
+    return cur, perm.to(torch.int32), shifts
+
+
+@pytest.mark.parametrize("ones_in", ["last", "every"])
+@pytest.mark.parametrize("case,n", [(c, 3000) for c in SORT_CASES]
+                         + [(c, 1) for c in SORT_CASES] + [("random64", 0)])
+def test_planned_passes_sort_like_the_plain_version(case, n, ones_in):
+    u, key_bits, want_passes = adversarial_sort_keys(case, n,
+                                                     seed=len(case) + n)
+    keys = torch.from_numpy(u.view(np.int64))
+    got, gperm, shifts = _lsd_by_plan(keys, key_bits, ones_in)
+    want, wperm = sort_cuda.radix_sort_plain(keys, key_bits)
+    assert torch.equal(got, want) and torch.equal(gperm, wperm)
+    assert np.array_equal(gperm.numpy(), np.argsort(u, kind="stable"))
+    assert len(shifts) == (want_passes if n > 1 else 0)
+    # the plain histogram against numpy's
+    ones = np.uint64(2**key_bits - 1)
+    rest = u[u != ones]
+    hist, n_ones = sort_cuda.digit_histogram_plain(keys, key_bits)
+    assert n_ones == int((u == ones).sum())
+    assert np.array_equal(hist, np.stack([
+        np.bincount(((rest >> np.uint64(s)) & np.uint64(0xFF))
+                    .astype(np.int64), minlength=256)
+        for s in range(0, key_bits, 8)]))
+
+
+@pytest.mark.parametrize("hist_rows,n_ones,n,key_bits,want", [
+    ([[5] + [0] * 255] * 8, 0, 5, 64, []),            # all keys equal
+    ([[0] * 256] * 8, 4, 4, 64, []),                  # all keys all-ones
+    ([[5] + [0] * 255] * 8, 2, 7, 64, [0]),           # partition only
+    ([[3, 2] + [0] * 254] * 4, 0, 5, 32, [0, 8, 16, 24]),
+    ([[5] + [0] * 255] * 7 + [[4, 1] + [0] * 254], 9, 14, 64, [56]),
+])
+def test_plan_passes_rules(hist_rows, n_ones, n, key_bits, want):
+    assert sort_cuda.plan_passes(np.array(hist_rows), n_ones, n,
+                                 key_bits) == want
+
+
 @pytest.fixture
 def cuda_device():
     """The card, decided when the test runs (never at import)."""
@@ -167,3 +223,19 @@ def test_kernel_matches_plain_version(cuda_device, n, key_bits):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(gperm, wperm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_kernel_on_adversarial_keys(cuda_device, case):
+    u, key_bits, want_passes = adversarial_sort_keys(case, 1 << 20,
+                                                     seed=len(case))
+    keys = torch.from_numpy(u.view(np.int64)).to(cuda_device)
+    hist, n_ones = sort_cuda.digit_histogram(keys, key_bits)
+    want_hist, want_ones = sort_cuda.digit_histogram_plain(keys, key_bits)
+    assert np.array_equal(hist, want_hist) and n_ones == want_ones
+    assert len(sort_cuda.plan_passes(hist, n_ones, keys.numel(),
+                                     key_bits)) == want_passes
+    got, gperm = sort_cuda.radix_sort(keys, key_bits)
+    want, wperm = sort_cuda.radix_sort_plain(keys, key_bits)
+    assert torch.equal(got, want) and torch.equal(gperm, wperm)

@@ -74,7 +74,7 @@ def _build_port(reads, min_count):
     ck = tcount.trim_to_host(tcount.count_reads(torch.from_numpy(reads), K))
     return tup.build_unipaths(ck.words, K, min_count=min_count,
                               counts=ck.counts, with_graph=True,
-                              with_placement=True)
+                              with_placement=True, device="cpu")
 
 
 def _assert_same(a, b, fields, what):
