@@ -104,18 +104,23 @@ def build() -> tuple:
     return nvcc.build(_SOURCE)
 
 
+def bind(lib):
+    """Declare the C functions' argument and result types on a loaded
+    library of csrc/banded_bp.cu; returns it."""
+    vp = ctypes.c_void_p
+    ci = ctypes.c_int
+    lib.banded_bp_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                     ci, ci, ci, ci, vp]
+    lib.banded_bp_launch.restype = ci
+    lib.banded_bp_error_string.argtypes = [ci]
+    lib.banded_bp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library():
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
         path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        vp = ctypes.c_void_p
-        ci = ctypes.c_int
-        lib.banded_bp_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                         ci, ci, ci, ci, vp]
-        lib.banded_bp_launch.restype = ci
-        lib.banded_bp_error_string.argtypes = [ci]
-        lib.banded_bp_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(path)))
     return _lib

@@ -20,7 +20,7 @@ _counts: collections.Counter = collections.Counter()  # (kernel, stage) -> n
 
 def record(kernel: str) -> None:
     with _lock:
-        _counts[(kernel, getattr(_local, "stage", None))] += 1
+        _counts[(kernel, current_stage())] += 1
 
 
 def count(kernel: str) -> int:
@@ -44,6 +44,12 @@ def by_stage() -> Dict[Optional[str], Dict[str, int]]:
         for (k, s), n in _counts.items():
             out.setdefault(s, {})[k] = n
     return out
+
+
+def current_stage() -> Optional[str]:
+    """The stage this thread's launches are counted under (None outside
+    one)."""
+    return getattr(_local, "stage", None)
 
 
 @contextlib.contextmanager

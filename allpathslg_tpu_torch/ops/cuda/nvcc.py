@@ -7,12 +7,15 @@ library lands in `build/kernels/` (gitignored) under a name that carries
 a hash of the source and the flags, so an edit rebuilds; the compile goes
 to a temporary name and is renamed into place, so a concurrent or
 interrupted build never leaves a bad file. A failed build raises.
+`build_variant` builds edited copies of a source for the tuning scripts
+under scripts/.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -53,3 +56,38 @@ def build(source: str) -> tuple:
         raise RuntimeError(f"nvcc failed for {src_path}:\n{proc.stderr}")
     os.replace(tmp, out)
     return out, time.perf_counter() - t0
+
+
+def build_variant(source: str, variant: str = "", ptxas: bool = False,
+                  text: str | None = None) -> Path:
+    """Compile a variant of `csrc/<source>` for a tuning script: a copy in
+    which each NAME=VALUE of the comma-separated `variant` sets the
+    constant `constexpr int NAME` ("" is the source as it is), or `text`
+    as given, under build/tune_<stem>/. With `ptxas`, adds -Xptxas -v and
+    prints its report (registers, shared memory, spills). Returns the
+    library's path; a failed build raises."""
+    stem = Path(source).stem
+    src = (CSRC / source).read_text() if text is None else text
+    for setting in filter(None, variant.split(",")):
+        name, value = setting.split("=")
+        src, n = re.subn(rf"constexpr int {name} = \d+;",
+                         f"constexpr int {name} = {int(value)};", src)
+        if n != 1:
+            raise RuntimeError(f"{name} not found in {source}")
+    out_dir = BUILD_DIR.parent / f"tune_{stem}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = re.sub(r"[^A-Za-z0-9]+", "_", variant) or "source"
+    if text is not None:
+        tag += "_" + hashlib.sha1(text.encode()).hexdigest()[:8]
+    cu = out_dir / f"{stem}_{tag}.cu"
+    cu.write_text(src)
+    lib = out_dir / f"lib{stem}_{tag}.so"
+    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if ptxas else [])
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(lib), str(cu)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {cu}:\n{proc.stderr}")
+    if ptxas:
+        print(f"[ptxas] {stem} {variant or 'source'}:\n"
+              f"{proc.stderr.strip()}", flush=True)
+    return lib

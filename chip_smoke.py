@@ -30,7 +30,8 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      1-2 indels, ragged lengths, infeasible offsets), (b) bands 1 and 15,
      (c) bench.py's DP shape (16,384 x 100 x 140, band 15) and (d) an
      N-bearing batch (against the plain version on the query with code
-     4 -> 6); median times of kernel and plain version at (a) and (c);
+     4 -> 6); kernel (device_ms) and plain version (median_ms) timed in
+     turns at (a) and (c);
   6. general banded-DP parity on the card: the kernel against its plain
      version (ops/banded.banded_align), exactly, at (1) bands 16, 24, 48,
      96 and 192 at a patch_gaps-like shape (16,384 x 256 x 512, ragged,
@@ -62,15 +63,27 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      that the bit-parallel kernel ran in align_frags and align_jumps; that
      the jump insert estimate is within 10 % of 3000; that patch_gaps
      closed a gap; that the final assembly covers >= 95 % of the genome;
-     and that final.assembly.fasta and submission/*.fsa exist.
+     and that final.assembly.fasta and submission/*.fsa exist. While it
+     runs, DPCapture wraps both DP kernels' wrappers and counts their
+     calls by (stage, B x Lq x Lt, band) with q_len min / mean / max,
+     keeping the first 2 calls of each; after it, every kept call's
+     outputs are held against the plain version, exactly, and kernel
+     (device_ms) and plain version are timed in turns on the first kept
+     align_frags and align_jumps batch of the bit-parallel kernel and on
+     each kept batch of the general one, each with its bound and, for the
+     bit-parallel kernel, its share of idle lane-rows.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is the kernel record {"kernels": [...]}, whose `launches` are each
 kernel's launches in the two pipeline phases (7 and 8), each counted from
 0 just before its phase, and whose `bound_ms` is the least time of the
-timed call: its bytes over 3.35 TB/s against its integer operations
-(counted from the kernel's source for the DP kernels) over the card's
-int32 rate; the last line is {"ok": true, "device": {...}}.
+timed call: its bytes (for the DP kernels, those its data needs:
+dp_bound) over 3.35 TB/s against its integer operations (BP_OPS_PER_ROW
+and GENERAL_OPS_PER_SLOT for the DP kernels) over the card's int32 rate. The bit-parallel kernel's ms, plain_ms and bound_ms
+are those of phase 8's align_frags batch (align_jumps_* and set_a_* keys
+add its align_jumps batch and set (a) of phase 5); the general kernel's
+are phase 6's set (1, band 96), with run_full_* lists for phase 8's
+batches. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -105,7 +118,9 @@ def check(cond: bool, what: str):
 
 
 def median_ms(fn, reps: int = TIMING_REPS) -> float:
-    """Median device time of fn() over reps launches (CUDA events)."""
+    """Median time of one fn() call over reps calls, CUDA events around
+    each, the card idle before it (so it includes the host's launch time
+    where the call's kernels are short)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -117,6 +132,28 @@ def median_ms(fn, reps: int = TIMING_REPS) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device time of one fn() call: reps calls enqueued behind a sleep
+    kernel that keeps the card busy while the host enqueues them, timed by
+    CUDA events around the reps, the median of `rounds`. median_ms times
+    one call that starts on an idle card, so a call whose host side (the
+    wrapper, the ctypes launch) outlasts its kernel reads as host time."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)   # ~10 ms at 2 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
 
 
@@ -141,15 +178,22 @@ def phase_card():
     return name, int_rate
 
 
-def dp_bound(q, ql, t, ops_per_row: int, int_rate: float):
-    """(bound ms, "bytes" or "operations") of a banded-DP call: its bytes
-    (q and t read once, q_len, t_len and offset in, cost and t_end out)
-    over the memory rate, against the rows this batch's q_len asks for
-    times ops_per_row over the int32 rate."""
-    n_bytes = q.numel() + t.numel() + 5 * 4 * q.shape[0]
-    rows = int(torch.where((ql >= 1) & (ql <= q.shape[1]), ql, 0).sum())
+def dp_bound(q, ql, t, off, band: int, ops_per_row: int, int_rate: float):
+    """(bound ms, "bytes" or "operations") of a banded-DP call: the bytes
+    this batch's data needs (each problem's q_len query bytes and the
+    target columns its band reaches, [off - band, q_len + off + band)
+    within [0, Lt), read once; q_len, t_len and offset in, cost and t_end
+    out) over the memory rate, against the rows its q_len asks for times
+    ops_per_row over the int32 rate."""
+    Lt = t.shape[1]
+    rows = torch.where((ql >= 1) & (ql <= q.shape[1]), ql, 0).to(torch.int64)
+    off = off.to(torch.int64)
+    lo = (off - band).clamp(0, Lt)
+    hi = (rows + off + band).clamp(0, Lt)
+    cols = torch.where(rows > 0, (hi - lo).clamp(min=0), 0)
+    n_bytes = int(rows.sum()) + int(cols.sum()) + 5 * 4 * q.shape[0]
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = rows * ops_per_row / int_rate * 1e3
+    by_ops = int(rows.sum()) * ops_per_row / int_rate * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -424,14 +468,23 @@ def dp_problems(rng, B: int, Lq: int, Lt: int, band: int,
     return q, q_len, t, t_len, offset
 
 
-# Integer operations a DP row needs, counted from the kernels' sources. The
-# bit-parallel row (csrc/banded_bp.cu): the recurrence of its header, 25
-# (X 2, the carries 4, Z 2, P' and M' 14, s0 3), and the Eq window's slide,
-# 16 (4 plane shifts, 4 x compare-shift-or for the new column). The
-# general DP, per band slot of a row (csrc/banded_general.cu): diag 3 (compare,
-# select, add), up 1, their min 1, the closure 4 (offset, running min,
-# add back, min); index and edge bookkeeping is not counted.
-BP_OPS_PER_ROW = 25 + 16
+# Integer operations a DP row needs, counted as Hopper instructions (the
+# int32 rate is one of instructions; LOP3 takes any logic function of
+# three words). The bit-parallel row: the Myers/Hyyro recurrence of
+# csrc/banded_bp.cu's header in the shortest form found, 12: SHF for
+# M >> 1; X = Eq | (M >> 1) and V = Eq | (M >> 1) | P (2 LOP3); the sum
+# X + V (IADD3); the carries c = sum ^ X ^ V (LOP3); Z = X | (P & c)
+# (LOP3); d = c ^ Z (LOP3); P' = P ? ~d : d & Q with Q = c & ~M &
+# bandmask, and M' = M ? ~d : d & R with R = ~c & ~P & bandmask (4 LOP3);
+# bit 0 of Z into a word for s0 (SHF; its popcount once per 32 rows is
+# left out). How a design forms each row's Eq word (a slid window, a
+# funnel shift of prebuilt planes) is the design's own cost and not the
+# work's, so it is left out: a bound that counted one design's Eq would
+# let another design beat it. The general DP, per band slot of a row
+# (csrc/banded_general.cu): diag 3 (compare, select, add), up 1, their min
+# 1, the closure 4 (offset, running min, add back, min); index and edge
+# bookkeeping is not counted.
+BP_OPS_PER_ROW = 12
 GENERAL_OPS_PER_SLOT = 9
 
 
@@ -477,18 +530,17 @@ def phase_banded(seed: int, int_rate: float):
             def kernel():
                 return banded_cuda.banded_align_bp(q, ql, t, tl, off, band)
 
-            turns = [median_ms(plain), median_ms(kernel), median_ms(plain),
-                     median_ms(kernel)]
-            bound = dp_bound(q, ql, t, BP_OPS_PER_ROW, int_rate)
+            turns = [median_ms(plain), device_ms(kernel), median_ms(plain),
+                     device_ms(kernel)]
+            bound = dp_bound(q, ql, t, off, band, BP_OPS_PER_ROW, int_rate)
             times[label[0]] = turns, bound
-            say(f"[banded] {label}: median of {TIMING_REPS}, in turns "
-                f"plain/kernel/plain/kernel: plain {turns[0]:.3f} / "
-                f"{turns[2]:.3f} ms, kernel {turns[1]:.3f} / "
-                f"{turns[3]:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]}")
+            say(f"[banded] {label}: in turns plain/kernel/plain/kernel: "
+                f"plain {turns[0]:.3f} / {turns[2]:.3f} ms (median of "
+                f"{TIMING_REPS}), kernel {turns[1]:.4f} / {turns[3]:.4f} ms "
+                f"(device_ms); bound {bound[0]:.4f} ms by {bound[1]}")
     a, bound = times["a"]
-    return {"max_abs_err": max_err, "ms": min(a[1], a[3]),
-            "plain_ms": min(a[0], a[2]), "library_ms": None,
-            "bound_ms": bound[0], "bound_by": bound[1]}
+    return {"max_abs_err": max_err, "set_a_ms": min(a[1], a[3]),
+            "set_a_plain_ms": min(a[0], a[2]), "set_a_bound_ms": bound[0]}
 
 
 def phase_banded_general(seed: int, int_rate: float):
@@ -539,8 +591,8 @@ def phase_banded_general(seed: int, int_rate: float):
         if label in ("1: patch-like, band 96", "3: bench.py shape"):
             turns = [median_ms(plain), median_ms(kernel), median_ms(plain),
                      median_ms(kernel)]
-            bound = dp_bound(q, ql, t, (2 * band + 1) * GENERAL_OPS_PER_SLOT,
-                             int_rate)
+            bound = dp_bound(q, ql, t, off, band,
+                             (2 * band + 1) * GENERAL_OPS_PER_SLOT, int_rate)
             times[label[0]] = turns, bound
             say(f"[general] {label}: median of {TIMING_REPS}, in turns "
                 f"plain/kernel/plain/kernel: plain {turns[0]:.3f} / "
@@ -738,9 +790,174 @@ def full_inputs(rd, genome_size: int, seed: int):
         f"{time.perf_counter() - t0:.1f} s")
 
 
-def phase_full(genome_size: int, seed: int):
+def lane_idle_share(q_len: np.ndarray, Lq: int, warp: int = 32) -> float:
+    """1 - (rows the queries ask for) / (rows the warps run), a warp of 32
+    consecutive problems running as long as its longest query (the
+    bit-parallel kernel's rows: q_len when 1 <= q_len <= Lq rounded up to
+    32, else 0)."""
+    lq_pad = (Lq + 31) // 32 * 32
+    rows = np.where((q_len >= 1) & (q_len <= lq_pad), q_len, 0).astype(
+        np.int64)
+    rows = np.pad(rows, (0, -len(rows) % warp)).reshape(-1, warp)
+    ran = int(rows.max(axis=1).sum()) * warp
+    return 1.0 - int(rows.sum()) / ran if ran else 0.0
+
+
+class DPCapture:
+    """Wraps the two DP kernels' wrappers while run_full runs (the module
+    attributes that ops/banded.banded_align_auto calls): counts each
+    kernel's calls by (stage, B x Lq x Lt, band), with q_len min / mean /
+    max, and keeps a device copy of the inputs and outputs of the first
+    KEEP calls of each. Stats and copies are taken on the stream, so the
+    run never waits for them."""
+
+    KEEP = 2
+    KERNELS = (("banded_cuda", "banded_align_bp", "banded_bp"),
+               ("banded_general_cuda", "banded_align_general",
+                "banded_general"))
+
+    def __init__(self):
+        import threading
+
+        self._lock = threading.Lock()
+        self.calls = {}   # (kernel, stage, B, Lq, Lt, band) -> [stats]
+        self.kept = {}    # the same key -> [(inputs, kwargs, outputs)]
+        self._saved = []
+
+    def install(self):
+        import importlib
+
+        for module, attr, kernel in self.KERNELS:
+            mod = importlib.import_module(
+                f"allpathslg_tpu_torch.ops.cuda.{module}")
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(kernel, fn))
+
+    def remove(self):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+        self._saved = []
+
+    def _wrap(self, kernel, fn):
+        import inspect
+
+        from allpathslg_tpu_torch.ops.cuda import launches
+
+        sig = inspect.signature(fn)
+
+        def wrapped(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            a = bound.arguments
+            q, t = a["q"], a["t"]
+            kw = {k: a[k] for k in ("band", "sub_cost", "gap_cost") if k in a}
+            key = (kernel, launches.current_stage(), q.shape[0], q.shape[1],
+                   t.shape[1], kw["band"])
+            ql = a["q_len"].to(torch.int64)
+            stats = (torch.stack([ql.min(), ql.sum(), ql.max()])
+                     if ql.numel() else torch.zeros(3, dtype=torch.int64))
+            out = fn(*args, **kwargs)
+            with self._lock:
+                self.calls.setdefault(key, []).append(stats)
+                kept = self.kept.setdefault(key, [])
+                if len(kept) < self.KEEP:
+                    kept.append((tuple(a[k].clone() for k in (
+                        "q", "q_len", "t", "t_len", "offset")), kw,
+                        tuple(x.clone() for x in out)))
+            return out
+
+        return wrapped
+
+
+def phase_dp_batches(capture: DPCapture, int_rate: float):
+    """The DP calls run_full made: the count and q_len of each (kernel,
+    stage, shape, band); every kept call's outputs against the plain
+    version, exactly; kernel and plain version timed in turns on the
+    first kept align_frags and align_jumps batch of the bit-parallel
+    kernel and on every kept batch of the general one. Returns
+    (bit-parallel record, general record)."""
+    from allpathslg_tpu_torch.ops.cuda import banded_cuda
+    from allpathslg_tpu_torch.ops.cuda import banded_general_cuda as bg
+
+    fns = {"banded_bp": (banded_cuda.banded_align_bp,
+                         banded_cuda.banded_align_bp_plain),
+           "banded_general": (bg.banded_align_general,
+                              bg.banded_general_plain)}
+    for key in sorted(capture.calls, key=str):
+        kernel, stage, B, Lq, Lt, band = key
+        st = torch.stack(capture.calls[key]).cpu()
+        n = st.shape[0]
+        say(f"[dp] {kernel} in {stage}: {n} calls at {B} x {Lq} x {Lt}, "
+            f"band {band}; q_len min {int(st[:, 0].min())} / mean "
+            f"{float(st[:, 1].sum()) / (n * B):.1f} / max "
+            f"{int(st[:, 2].max())}")
+    max_err = {"banded_bp": 0, "banded_general": 0}
+    for key, kept in sorted(capture.kept.items(), key=lambda kv: str(kv[0])):
+        kernel = key[0]
+        for arrays, kw, out in kept:
+            want = fns[kernel][1](*arrays, **kw)
+            err = max(int((out[0] - want[0]).abs().max()),
+                      int((out[1] - want[1]).abs().max()))
+            check(err == 0, f"{kernel} != plain version on a {key[1]} call "
+                  f"of run_full ({key[2]} x {key[3]} x {key[4]}, band "
+                  f"{key[5]})")
+            max_err[kernel] = max(max_err[kernel], err)
+        say(f"[dp] {kernel} in {key[1]}, {key[2]} x {key[3]} x {key[4]}, "
+            f"band {key[5]}: {len(kept)} kept calls == plain (cost and "
+            f"t_end)")
+
+    def timed(key, ops_per_row):
+        kernel = key[0]
+        arrays, kw, _ = capture.kept[key][0]
+        kern, plain = fns[kernel]
+        turns = [median_ms(lambda: plain(*arrays, **kw)),
+                 device_ms(lambda: kern(*arrays, **kw)),
+                 median_ms(lambda: plain(*arrays, **kw)),
+                 device_ms(lambda: kern(*arrays, **kw))]
+        q, ql, t = arrays[:3]
+        bound = dp_bound(q, ql, t, arrays[4], key[5], ops_per_row, int_rate)
+        idle = (f", idle lane-rows "
+                f"{100 * lane_idle_share(ql.cpu().numpy(), q.shape[1]):.1f} %"
+                if kernel == "banded_bp" else "")
+        say(f"[dp] {kernel} on a batch of run_full's {key[1]}, {key[2]} x "
+            f"{key[3]} x {key[4]}, band {key[5]} (q_len mean "
+            f"{float(ql.float().mean()):.1f}{idle}): in turns "
+            f"plain/kernel/plain/kernel: "
+            f"plain {turns[0]:.3f} / {turns[2]:.3f} ms (median of "
+            f"{TIMING_REPS}), kernel {turns[1]:.4f} / {turns[3]:.4f} ms "
+            f"(device_ms); "
+            f"bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({100 * bound[0] / min(turns[1], turns[3]):.1f} % of it)")
+        return {"ms": min(turns[1], turns[3]),
+                "plain_ms": min(turns[0], turns[2]),
+                "bound_ms": bound[0], "bound_by": bound[1]}
+
+    bp = {}
+    for stage in ("align_frags", "align_jumps"):
+        keys = [k for k in capture.kept if k[:2] == ("banded_bp", stage)]
+        check(bool(keys), f"run_full made no bit-parallel call in {stage}")
+        bp[stage] = timed(max(keys, key=lambda k: k[2] * k[3]),
+                          BP_OPS_PER_ROW)
+    general = [timed(k, (2 * k[5] + 1) * GENERAL_OPS_PER_SLOT)
+               for k in sorted(capture.kept, key=str)
+               if k[0] == "banded_general"]
+    bp_record = {"max_abs_err": max_err["banded_bp"], **bp["align_frags"],
+                 "library_ms": None,
+                 "align_jumps_ms": bp["align_jumps"]["ms"],
+                 "align_jumps_plain_ms": bp["align_jumps"]["plain_ms"],
+                 "align_jumps_bound_ms": bp["align_jumps"]["bound_ms"]}
+    general_record = {"max_abs_err": max_err["banded_general"],
+                      "run_full_ms": [g["ms"] for g in general],
+                      "run_full_plain_ms": [g["plain_ms"] for g in general],
+                      "run_full_bound_ms": [g["bound_ms"] for g in general]}
+    return bp_record, general_record
+
+
+def phase_full(genome_size: int, seed: int, capture: DPCapture):
     """run_full on the card at the binding libraries over a repeat-bearing
-    genome; returns each kernel's launches in the run."""
+    genome, with `capture` installed around it; returns each kernel's
+    launches in the run."""
     from allpathslg_tpu_torch.eval import stats
     from allpathslg_tpu_torch.ops.cuda import launches
     from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
@@ -756,10 +973,14 @@ def phase_full(genome_size: int, seed: int):
     cfg = AssemblyConfig.from_overrides()
     pipe = Pipeline(rd, cfg, lambda *a: None, device="cuda")
     launches.reset()
-    t0 = time.perf_counter()
-    pipe.run_full()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    capture.install()
+    try:
+        t0 = time.perf_counter()
+        pipe.run_full()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        capture.remove()
     by_stage = launches.by_stage()
     total = {k: launches.count(k) for k in ("radix_sort", "banded_bp",
                                              "banded_general")}
@@ -830,10 +1051,16 @@ def main(argv=None) -> int:
     codes = flagship_codes(args.seed)
     record = phase_sort(codes, args.seed)
     phase_spectrum(codes)
-    dp_record = phase_banded(args.seed, int_rate)
+    set_a_record = phase_banded(args.seed, int_rate)
     general_record = phase_banded_general(args.seed, int_rate)
     slice_launches = phase_slice(args.genome_size, args.seed)
-    full_launches = phase_full(args.full_genome_size, args.seed)
+    capture = DPCapture()
+    full_launches = phase_full(args.full_genome_size, args.seed, capture)
+    bp_record, general_full = phase_dp_batches(capture, int_rate)
+    bp_record["max_abs_err"] = max(bp_record["max_abs_err"],
+                                   set_a_record.pop("max_abs_err"))
+    general_record["max_abs_err"] = max(general_record["max_abs_err"],
+                                        general_full.pop("max_abs_err"))
     say(json.dumps({"kernels": [{
         "name": "radix_sort_u64", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/radix_sort.cu",
@@ -844,11 +1071,12 @@ def main(argv=None) -> int:
         "source": "allpathslg_tpu_torch/csrc/banded_bp.cu",
         "replaces": "allpathslg_tpu/ops/pallas/banded_bp.py:294",
         "launches": slice_launches["banded"] + full_launches["banded_bp"],
-        **dp_record}, {
+        **bp_record, **set_a_record}, {
         "name": "banded_general", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/banded_general.cu",
         "replaces": "allpathslg_tpu/ops/pallas/banded_pallas.py:127",
-        "launches": full_launches["banded_general"], **general_record}]}))
+        "launches": full_launches["banded_general"], **general_record,
+        **general_full}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

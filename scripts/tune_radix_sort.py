@@ -25,8 +25,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -43,28 +41,8 @@ from allpathslg_tpu_torch.ops.cuda import nvcc, sort_cuda  # noqa: E402
 
 def build_variant(variant: str, ptxas: bool):
     """The bound library of radix_sort.cu with the variant's constants."""
-    src = (nvcc.CSRC / "radix_sort.cu").read_text()
-    for setting in filter(None, variant.split(",")):
-        name, value = setting.split("=")
-        src, n = re.subn(rf"constexpr int {name} = \d+;",
-                         f"constexpr int {name} = {int(value)};", src)
-        if n != 1:
-            raise RuntimeError(f"{name} not found in radix_sort.cu")
-    out_dir = ROOT / "build" / "tune_radix_sort"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tag = re.sub(r"[^A-Za-z0-9]+", "_", variant) or "source"
-    cu = out_dir / f"radix_sort_{tag}.cu"
-    cu.write_text(src)
-    lib = out_dir / f"libradix_sort_{tag}.so"
-    flags = nvcc.NVCC_FLAGS + (["-Xptxas", "-v"] if ptxas else [])
-    proc = subprocess.run([nvcc._nvcc(), *flags, "-o", str(lib), str(cu)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {cu}:\n{proc.stderr}")
-    if ptxas:
-        print(f"[ptxas] {variant or 'source'}:\n{proc.stderr.strip()}",
-              flush=True)
-    return sort_cuda.bind(ctypes.CDLL(str(lib)))
+    return sort_cuda.bind(ctypes.CDLL(str(
+        nvcc.build_variant("radix_sort.cu", variant, ptxas))))
 
 
 def main(argv=None) -> int:
