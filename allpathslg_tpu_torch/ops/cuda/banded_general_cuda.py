@@ -28,7 +28,8 @@ from allpathslg_tpu_torch.ops import banded
 from allpathslg_tpu_torch.ops.cuda import launches, nvcc
 
 MAX_BAND = 255         # 2 * band + 1 slots over 32 lanes x 16 registers
-MAX_COST = 1024        # keeps every cell far below int32 overflow
+MAX_COST = 1024        # with MAX_LQ, keeps every cell inside int32
+MAX_LQ = 1 << 20
 _SOURCE = "banded_general.cu"
 
 _KERNEL = "banded_general"  # name in ops/cuda/launches.py
@@ -84,6 +85,8 @@ def _banded_general_cuda(q, q_len, t, t_len, offset, band: int,
                          f"{tuple(t.shape)}")
     B, Lq = q.shape
     Lt = t.shape[1]
+    if Lq > MAX_LQ:
+        raise ValueError(f"banded_align_general: Lq={Lq} above {MAX_LQ}")
     dev = q.device
     scal = []
     for name, x in (("q_len", q_len), ("t_len", t_len), ("offset", offset)):
@@ -116,22 +119,28 @@ def build() -> tuple:
     return nvcc.build(_SOURCE)
 
 
+def bind(lib):
+    """Declare the C functions' argument and result types on a loaded
+    library of csrc/banded_general.cu (this one or an earlier version, for
+    scripts/tune_banded_general.py); returns it."""
+    vp = ctypes.c_void_p
+    ci = ctypes.c_int
+    lib.banded_general_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                          ci, ci, ci, ci, ci, ci, vp]
+    lib.banded_general_launch.restype = ci
+    lib.banded_general_error_string.argtypes = [ci]
+    lib.banded_general_error_string.restype = ctypes.c_char_p
+    lib.banded_general_max_band.restype = ci
+    if lib.banded_general_max_band() != MAX_BAND:
+        raise RuntimeError("banded_general: library and wrapper disagree "
+                           "on the largest band")
+    return lib
+
+
 def library():
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
         path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        vp = ctypes.c_void_p
-        ci = ctypes.c_int
-        lib.banded_general_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                              ci, ci, ci, ci, ci, ci, vp]
-        lib.banded_general_launch.restype = ci
-        lib.banded_general_error_string.argtypes = [ci]
-        lib.banded_general_error_string.restype = ctypes.c_char_p
-        lib.banded_general_max_band.restype = ci
-        if lib.banded_general_max_band() != MAX_BAND:
-            raise RuntimeError("banded_general: library and wrapper disagree "
-                               "on the largest band")
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(path)))
     return _lib

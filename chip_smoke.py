@@ -10,8 +10,11 @@ of JAX or of the JAX package. Phases, each printed as it ends:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
   2. build the three Hopper kernels, the radix sort (csrc/radix_sort.cu),
      the bit-parallel banded DP (csrc/banded_bp.cu) and the general
-     banded DP (csrc/banded_general.cu), with nvcc for sm_90a, one nvcc
-     for each, started together;
+     banded DP (csrc/banded_general.cu), and the chain probes
+     (csrc/chain_probe.cu), with nvcc for sm_90a, one nvcc for each,
+     started together; then chain_terms: the latency of one dependent DPX
+     instruction and the device time of an empty launch, which the general
+     kernel's chain bound uses;
   3. sort parity on the card at the flagship's shape (131,072 reads x
      150 bp at K=24: 16,646,144 two-word keys): the kernel against its
      plain PyTorch version, exactly, with many duplicate keys and with
@@ -33,12 +36,18 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      4 -> 6); kernel (device_ms) and plain version (median_ms) timed in
      turns at (a) and (c);
   6. general banded-DP parity on the card: the kernel against its plain
-     version (ops/banded.banded_align), exactly, at (1) bands 16, 24, 48,
-     96 and 192 at a patch_gaps-like shape (16,384 x 256 x 512, ragged,
-     with q_len = 0 rows and infeasible offsets), (2) sub_cost=2,
-     gap_cost=3 at band 24, (3) bench.py's shape (16,384 x 100 x 140,
-     band 15, the kernel called directly) and (4) an N-bearing batch
-     with no remapping of code 4; median times at (1, band 96) and (3);
+     version (ops/banded.banded_align), exactly, on GENERAL_SETS: (1)
+     bands 16, 24, 48, 96 and 192 at 16,384 x 256 x 512 (ragged, with
+     q_len = 0 rows and infeasible offsets), (2) sub_cost=2, gap_cost=3
+     at band 24, (3) bench.py's shape (16,384 x 100 x 140, band 15, the
+     kernel called directly), (4) an N-bearing batch with no remapping of
+     code 4, (5) run_full's three patch_gaps batches, B = 8 (8 x 64 x 512
+     at band 192, 8 x 128 x 512 at bands 96 and 48; patch_problems), (6)
+     B = 1 at band 16 (assisted's), (7) bands 0, 1, 2, 15 and 255 and (8)
+     targets shorter than K with q_len = Lq and offsets at both edges of
+     the feasible window (edge_problems); kernel (device_ms) and plain
+     version (median_ms) in turns at (1, band 96), (3), (5) and (6), each
+     with its bound and the bound's three terms (general_bound);
   7. the contig slice and align_frags through Pipeline(device="cuda"):
      prepare_sim_inputs -> validate_inputs -> remove_dodgy -> precorrect
      -> find_errors -> clean_reads -> fill_fragments -> unipaths ->
@@ -70,20 +79,30 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      outputs are held against the plain version, exactly, and kernel
      (device_ms) and plain version are timed in turns on the first kept
      align_frags and align_jumps batch of the bit-parallel kernel and on
-     each kept batch of the general one, each with its bound and, for the
-     bit-parallel kernel, its share of idle lane-rows.
+     each kept batch of the general one, each with its bound (for the
+     general kernel, its three terms) and, for the bit-parallel kernel,
+     its share of idle lane-rows;
+  9. run_full through the port on the card and on the CPU over
+     tests/test_torch_full.py's 40 kb genome with a two-copy 2.5 kb
+     repeat (40x fragment, 15x jump reads of 4000 +- 350, batch_reads
+     4096; cmp_inputs): the general kernel must launch in patch_gaps on
+     the card, and every artifact of CMP_ARTIFACTS, every file of
+     CMP_TEXT_FILES and every stage metric must be byte-identical.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is the kernel record {"kernels": [...]}, whose `launches` are each
 kernel's launches in the two pipeline phases (7 and 8), each counted from
 0 just before its phase, and whose `bound_ms` is the least time of the
 timed call: its bytes (for the DP kernels, those its data needs:
-dp_bound) over 3.35 TB/s against its integer operations (BP_OPS_PER_ROW
-and GENERAL_OPS_PER_SLOT for the DP kernels) over the card's int32 rate. The bit-parallel kernel's ms, plain_ms and bound_ms
+dp_terms) over 3.35 TB/s against its integer operations (BP_OPS_PER_ROW
+and GENERAL_OPS_PER_SLOT for the DP kernels) over the card's int32 rate,
+and for the general kernel also its chain (general_bound); `bound_by`
+names the larger. The bit-parallel kernel's ms, plain_ms and bound_ms
 are those of phase 8's align_frags batch (align_jumps_* and set_a_* keys
 add its align_jumps batch and set (a) of phase 5); the general kernel's
-are phase 6's set (1, band 96), with run_full_* lists for phase 8's
-batches. The last line is {"ok": true, "device": {...}}.
+are phase 6's set (1, band 96), with b8_*, b1_band16_* and bench_shape_*
+keys for sets 5, 6 and 3 and run_full_* lists for phase 8's batches. The
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -178,13 +197,13 @@ def phase_card():
     return name, int_rate
 
 
-def dp_bound(q, ql, t, off, band: int, ops_per_row: int, int_rate: float):
-    """(bound ms, "bytes" or "operations") of a banded-DP call: the bytes
-    this batch's data needs (each problem's q_len query bytes and the
-    target columns its band reaches, [off - band, q_len + off + band)
-    within [0, Lt), read once; q_len, t_len and offset in, cost and t_end
-    out) over the memory rate, against the rows its q_len asks for times
-    ops_per_row over the int32 rate."""
+def dp_terms(q, ql, t, off, band: int, ops_per_row: int, int_rate: float):
+    """(bytes ms, operations ms) of a banded-DP call: the bytes this
+    batch's data needs (each problem's q_len query bytes and the target
+    columns its band reaches, [off - band, q_len + off + band) within [0,
+    Lt), read once; q_len, t_len and offset in, cost and t_end out) over
+    the memory rate, and the rows its q_len asks for times ops_per_row over
+    the int32 rate."""
     Lt = t.shape[1]
     rows = torch.where((ql >= 1) & (ql <= q.shape[1]), ql, 0).to(torch.int64)
     off = off.to(torch.int64)
@@ -192,10 +211,57 @@ def dp_bound(q, ql, t, off, band: int, ops_per_row: int, int_rate: float):
     hi = (rows + off + band).clamp(0, Lt)
     cols = torch.where(rows > 0, (hi - lo).clamp(min=0), 0)
     n_bytes = int(rows.sum()) + int(cols.sum()) + 5 * 4 * q.shape[0]
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = int(rows.sum()) * ops_per_row / int_rate * 1e3
+    return (n_bytes / HBM_BYTES_PER_S * 1e3,
+            int(rows.sum()) * ops_per_row / int_rate * 1e3)
+
+
+def dp_bound(q, ql, t, off, band: int, ops_per_row: int, int_rate: float):
+    """(bound ms, "bytes" or "operations"): the larger of dp_terms."""
+    by_bytes, by_ops = dp_terms(q, ql, t, off, band, ops_per_row, int_rate)
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def general_bound(q, ql, t, off, band: int, int_rate: float, chain: dict):
+    """(bound ms, the term that bounds it, {term: ms}) of a general-DP
+    call: the largest of its bytes and operations (dp_terms at
+    GENERAL_OPS_PER_SLOT a band slot) and its chain, the least dependent
+    chain the DP needs, (2 * max q_len + K) dependent instructions at the
+    card's measured DPX latency, plus one empty launch (chain_terms)."""
+    K = 2 * band + 1
+    by_bytes, by_ops = dp_terms(q, ql, t, off, band,
+                                K * GENERAL_OPS_PER_SLOT, int_rate)
+    rows = torch.where((ql >= 1) & (ql <= q.shape[1]), ql, 0)
+    longest = int(rows.max()) if rows.numel() else 0
+    by_chain = ((2 * longest + K) * chain["dpx_s"] * 1e3
+                + chain["empty_ms"])
+    terms = {"bytes": by_bytes, "operations": by_ops, "chain": by_chain}
+    by = max(terms, key=terms.get)
+    return terms[by], by, terms
+
+
+def show_terms(terms: dict) -> str:
+    return ", ".join(f"{k} {v:.5f}" for k, v in terms.items())
+
+
+def chain_terms() -> dict:
+    """The chain term's two measurements on the card (csrc/chain_probe.cu):
+    the latency of one dependent DPX instruction (device_ms of chains of
+    4,096 and 65,536 __viaddmin_s32 on one thread, the slope; clock64
+    cycles a step beside it) and the device time of one empty launch
+    through ctypes (device_ms)."""
+    from allpathslg_tpu_torch.ops.cuda import chain_probe
+
+    short, long_ = chain_probe.DpxChain(4096), chain_probe.DpxChain(65536)
+    t_short, t_long = device_ms(short), device_ms(long_)
+    cycles = long_.cycles_per_step()
+    dpx_s = (t_long - t_short) / (long_.n - short.n) * 1e-3
+    empty_ms = device_ms(chain_probe.empty)
+    say(f"[chain] dependent __viaddmin_s32: {dpx_s * 1e9:.3f} ns a step "
+        f"(device_ms of 4,096 and 65,536 steps: {t_short:.5f} / "
+        f"{t_long:.5f} ms; clock64 {cycles:.2f} cycles a step); empty "
+        f"launch {empty_ms:.5f} ms (device_ms)")
+    return {"dpx_s": dpx_s, "dpx_cycles": cycles, "empty_ms": empty_ms}
 
 
 def phase_build():
@@ -204,9 +270,10 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from allpathslg_tpu_torch.ops.cuda import (banded_cuda,
-                                               banded_general_cuda, sort_cuda)
+                                               banded_general_cuda,
+                                               chain_probe, sort_cuda)
 
-    mods = (sort_cuda, banded_cuda, banded_general_cuda)
+    mods = (sort_cuda, banded_cuda, banded_general_cuda, chain_probe)
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(), mods))
     for mod, (path, secs) in zip(mods, built):
@@ -480,12 +547,15 @@ def dp_problems(rng, B: int, Lq: int, Lt: int, band: int,
 # left out). How a design forms each row's Eq word (a slid window, a
 # funnel shift of prebuilt planes) is the design's own cost and not the
 # work's, so it is left out: a bound that counted one design's Eq would
-# let another design beat it. The general DP, per band slot of a row
-# (csrc/banded_general.cu): diag 3 (compare, select, add), up 1, their min
-# 1, the closure 4 (offset, running min, add back, min); index and edge
-# bookkeeping is not counted.
+# let another design beat it. The general DP, per band slot of a row, as
+# csrc/banded_general.cu issues it: the substitution cost (ISETP, SEL), the
+# diagonal (IADD), min(up + gap, diagonal) and min(left + gap, that) (two
+# DPX VIADDMNMX): 5. As for Eq above, how a design brings each slot its
+# target code (there: a register shift and a shuffle a step) and its
+# shuffles between lanes are the design's own cost, not counted (the
+# earlier one-warp design's count was 9, with a prefix-min closure of 4).
 BP_OPS_PER_ROW = 12
-GENERAL_OPS_PER_SLOT = 9
+GENERAL_OPS_PER_SLOT = 5
 
 
 def phase_banded(seed: int, int_rate: float):
@@ -543,30 +613,108 @@ def phase_banded(seed: int, int_rate: float):
             "set_a_plain_ms": min(a[0], a[2]), "set_a_bound_ms": bound[0]}
 
 
-def phase_banded_general(seed: int, int_rate: float):
+def patch_problems(rng, B: int, Lq: int, Lt: int, band: int):
+    """General-DP inputs shaped like patch_gaps' negative junctions
+    (asm/patch.py): contig c2's first A bases (the query, A = q_len,
+    ragged in (Lq / 2, Lq]) against the last T bases of contig c1, with
+    slack = 3 * max(gap_dev, 4) in the band's bucket (band = _round_band(
+    slack + 4)), gap g = -(A + slack), T = min(len(c1), -g + slack + A +
+    12) within Lt and offset T + g; the query is the target's window at
+    the offset with 1 % substitutions. The last problem is the batch's
+    padding (q_len = t_len = offset = 0, codes 4), as _DPBatch pads B."""
+    lower = {12: 0, 24: 12, 48: 24, 96: 48, 192: 96}[band]
+    q = np.full((B, Lq), 4, np.uint8)
+    t = np.full((B, Lt), 4, np.uint8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    off = np.zeros(B, np.int32)
+    for i in range(B - 1):
+        slack = int(rng.integers(max(lower - 3, 9), band - 3))
+        A = int(rng.integers(Lq // 2 + 1, Lq + 1))
+        T = min(Lt, 2 * A + 2 * slack + 12, int(rng.integers(Lt // 2, 4 * Lt)))
+        o = T - A - slack
+        tt = rng.integers(0, 4, T).astype(np.uint8)
+        qq = tt[max(o, 0):max(o, 0) + A].copy()
+        qq = np.concatenate([qq, rng.integers(0, 4, A - len(qq))]).astype(
+            np.uint8)
+        sub = rng.random(A) < 0.01
+        qq[sub] = (qq[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        q[i, :A], t[i, :T] = qq, tt
+        ql[i], tl[i], off[i] = A, T, o
+    return q, ql, t, tl, off
+
+
+def edge_problems(rng, B: int, Lq: int, Lt: int, band: int):
+    """Every q_len = Lq; targets shorter than the band's K = 2 * band + 1
+    for half the problems; offsets cycling over both edges of the feasible
+    window [-(Lq + band), Lt + band], one past each, the edges of column 0
+    entering and leaving the band, and a diagonal inside."""
+    K = 2 * band + 1
+    q = rng.integers(0, 4, (B, Lq)).astype(np.uint8)
+    t = rng.integers(0, 4, (B, Lt)).astype(np.uint8)
+    ql = np.full(B, Lq, np.int32)
+    tl = np.where(np.arange(B) % 2 == 0, rng.integers(1, min(K, Lt + 1), B),
+                  Lt).astype(np.int32)
+    edges = np.array([-(Lq + band), -(Lq + band) + 1, -(Lq + band) - 1,
+                      -band - 1, -band, band, band + 1, Lt + band - 1,
+                      Lt + band, Lt + band + 1, 0], np.int32)
+    off = edges[np.arange(B) % len(edges)]
+    inside = np.arange(B) % len(edges) == len(edges) - 1
+    off[inside] = rng.integers(-band, band + 1, int(inside.sum()))
+    for i in np.flatnonzero(inside):
+        o = max(int(off[i]), 0)
+        n = max(0, min(Lq, Lt - o))
+        q[i, :n] = t[i, o:o + n]
+    return q, ql, t, tl, off
+
+
+# Phase 6's input sets: (label, inputs, B, Lq, Lt, band, sub_cost,
+# gap_cost, timed); "dp" is dp_problems with 2 % of q_len set to 0, "n"
+# the same with N codes
+GENERAL_SETS = (
+    [(f"1: patch-like, band {b}", "dp", 16_384, 256, 512, b, 1, 1, b == 96)
+     for b in (16, 24, 48, 96, 192)]
+    + [("2: sub_cost=2 gap_cost=3", "dp", 16_384, 256, 512, 24, 2, 3, False),
+       ("3: bench.py shape", "dp", 16_384, 100, 140, 15, 1, 1, True),
+       ("4: N-bearing, band 96", "n", 16_384, 256, 512, 96, 1, 1, False)]
+    + [(f"5: run_full patch_gaps B = 8, band {b}", "patch", 8, lq, 512, b,
+        1, 1, True) for b, lq in ((192, 64), (96, 128), (48, 128))]
+    + [("6: assisted B = 1, band 16", "dp", 1, 128, 160, 16, 1, 1, True)]
+    + [(f"7: band {b}", "dp", 4096, lq, lt, b, 1, 1, False)
+       for b, lq, lt in ((0, 100, 140), (1, 100, 140), (2, 100, 140),
+                         (15, 100, 140), (255, 64, 600))]
+    + [("8: edges, band 96, t_len < K, q_len = Lq", "edge", 4096, 64, 160,
+        96, 1, 1, False),
+       ("8: edges, band 1, t_len < K, q_len = Lq", "edge", 4096, 64, 160,
+        1, 2, 3, False)])
+
+
+def phase_banded_general(seed: int, int_rate: float, chain: dict):
     """The general banded-DP kernel against its plain version, exactly
-    (cost and t_end), on the input sets of the module docstring's phase 6;
-    prints the times at set 1's band 96 and at set 3, and returns the
-    record with the former."""
+    (cost and t_end), on GENERAL_SETS; kernel (device_ms) and plain version
+    (median_ms) timed in turns on the timed sets, each with its three bound
+    terms. Returns the record: set 1 at band 96 as ms / plain_ms /
+    bound_ms, the B = 8 sets, set 6 and set 3 under their own keys."""
     from allpathslg_tpu_torch.ops import banded
     from allpathslg_tpu_torch.ops.cuda import banded_general_cuda as bg
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 3)
-    sets = [(f"1: patch-like, band {b}", 16_384, 256, 512, b, 1, 1, False)
-            for b in (16, 24, 48, 96, 192)]
-    sets += [("2: sub_cost=2 gap_cost=3", 16_384, 256, 512, 24, 2, 3, False),
-             ("3: bench.py shape", 16_384, 100, 140, 15, 1, 1, False),
-             ("4: N-bearing, band 96", 16_384, 256, 512, 96, 1, 1, True)]
     max_err = 0
     times = {}
-    for label, B, Lq, Lt, band, sc, gc, with_n in sets:
-        q, ql, t, tl, off = dp_problems(rng, B, Lq, Lt, band, with_n)
-        ql[rng.random(B) < 0.02] = 0
-        q = np.where(np.arange(Lq)[None, :] < ql[:, None], q, 4).astype(
-            np.uint8)
-        q, ql, t, tl, off = (torch.from_numpy(x).to(dev)
-                             for x in (q, ql, t, tl, off))
+    for label, kind, B, Lq, Lt, band, sc, gc, timed in GENERAL_SETS:
+        if kind == "patch":
+            arrays = patch_problems(rng, B, Lq, Lt, band)
+        elif kind == "edge":
+            arrays = edge_problems(rng, B, Lq, Lt, band)
+        else:
+            q, ql, t, tl, off = dp_problems(rng, B, Lq, Lt, band, kind == "n")
+            if B > 1:
+                ql[rng.random(B) < 0.02] = 0
+            q = np.where(np.arange(Lq)[None, :] < ql[:, None], q, 4).astype(
+                np.uint8)
+            arrays = q, ql, t, tl, off
+        q, ql, t, tl, off = (torch.from_numpy(x).to(dev) for x in arrays)
 
         def kernel():
             return bg.banded_align_general(q, ql, t, tl, off, band=band,
@@ -588,20 +736,32 @@ def phase_banded_general(seed: int, int_rate: float):
             f"costs ({sc},{gc}): kernel == plain (cost and t_end); "
             f"{int(found.sum())} with an in-band path, "
             f"{int((ql == 0).sum())} with q_len 0")
-        if label in ("1: patch-like, band 96", "3: bench.py shape"):
-            turns = [median_ms(plain), median_ms(kernel), median_ms(plain),
-                     median_ms(kernel)]
-            bound = dp_bound(q, ql, t, off, band,
-                             (2 * band + 1) * GENERAL_OPS_PER_SLOT, int_rate)
-            times[label[0]] = turns, bound
-            say(f"[general] {label}: median of {TIMING_REPS}, in turns "
-                f"plain/kernel/plain/kernel: plain {turns[0]:.3f} / "
-                f"{turns[2]:.3f} ms, kernel {turns[1]:.3f} / "
-                f"{turns[3]:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]}")
-    t1, bound = times["1"]
-    return {"max_abs_err": max_err, "ms": min(t1[1], t1[3]),
-            "plain_ms": min(t1[0], t1[2]), "library_ms": None,
-            "bound_ms": bound[0], "bound_by": bound[1]}
+        if timed:
+            turns = [median_ms(plain), device_ms(kernel), median_ms(plain),
+                     device_ms(kernel)]
+            bound, by, terms = general_bound(q, ql, t, off, band, int_rate,
+                                             chain)
+            kern = min(turns[1], turns[3])
+            times[label] = {"ms": kern, "plain_ms": min(turns[0], turns[2]),
+                            "bound_ms": bound, "bound_by": by}
+            say(f"[general] {label}: in turns plain/kernel/plain/kernel: "
+                f"plain {turns[0]:.3f} / {turns[2]:.3f} ms (median of "
+                f"{TIMING_REPS}), kernel {turns[1]:.5f} / {turns[3]:.5f} ms "
+                f"(device_ms); bound {bound:.5f} ms by {by} "
+                f"({100 * bound / kern:.1f} % of it; terms ms: "
+                f"{show_terms(terms)})")
+    big = times["1: patch-like, band 96"]
+    b8 = [times[f"5: run_full patch_gaps B = 8, band {b}"]
+          for b in (192, 96, 48)]
+    b1 = times["6: assisted B = 1, band 16"]
+    bench = times["3: bench.py shape"]
+    return {"max_abs_err": max_err, **big, "library_ms": None,
+            "b8_ms": [x["ms"] for x in b8],
+            "b8_bound_ms": [x["bound_ms"] for x in b8],
+            "b8_bound_by": [x["bound_by"] for x in b8],
+            "b1_band16_ms": b1["ms"], "b1_band16_bound_ms": b1["bound_ms"],
+            "bench_shape_ms": bench["ms"],
+            "bench_shape_bound_ms": bench["bound_ms"]}
 
 
 def _canonical_kmers(codes: np.ndarray, K: int):
@@ -870,13 +1030,15 @@ class DPCapture:
         return wrapped
 
 
-def phase_dp_batches(capture: DPCapture, int_rate: float):
+def phase_dp_batches(capture: DPCapture, int_rate: float,
+                     chain: dict):
     """The DP calls run_full made: the count and q_len of each (kernel,
     stage, shape, band); every kept call's outputs against the plain
     version, exactly; kernel and plain version timed in turns on the
     first kept align_frags and align_jumps batch of the bit-parallel
-    kernel and on every kept batch of the general one. Returns
-    (bit-parallel record, general record)."""
+    kernel and on every kept batch of the general one (with its three
+    bound terms, general_bound). Returns (bit-parallel record, general
+    record)."""
     from allpathslg_tpu_torch.ops.cuda import banded_cuda
     from allpathslg_tpu_torch.ops.cuda import banded_general_cuda as bg
 
@@ -907,7 +1069,7 @@ def phase_dp_batches(capture: DPCapture, int_rate: float):
             f"band {key[5]}: {len(kept)} kept calls == plain (cost and "
             f"t_end)")
 
-    def timed(key, ops_per_row):
+    def timed(key):
         kernel = key[0]
         arrays, kw, _ = capture.kept[key][0]
         kern, plain = fns[kernel]
@@ -916,7 +1078,14 @@ def phase_dp_batches(capture: DPCapture, int_rate: float):
                  median_ms(lambda: plain(*arrays, **kw)),
                  device_ms(lambda: kern(*arrays, **kw))]
         q, ql, t = arrays[:3]
-        bound = dp_bound(q, ql, t, arrays[4], key[5], ops_per_row, int_rate)
+        if kernel == "banded_bp":
+            bound = dp_bound(q, ql, t, arrays[4], key[5], BP_OPS_PER_ROW,
+                             int_rate)
+            terms = ""
+        else:
+            *bound, terms = general_bound(q, ql, t, arrays[4], key[5],
+                                          int_rate, chain)
+            terms = f"; terms ms: {show_terms(terms)}"
         idle = (f", idle lane-rows "
                 f"{100 * lane_idle_share(ql.cpu().numpy(), q.shape[1]):.1f} %"
                 if kernel == "banded_bp" else "")
@@ -925,10 +1094,11 @@ def phase_dp_batches(capture: DPCapture, int_rate: float):
             f"{float(ql.float().mean()):.1f}{idle}): in turns "
             f"plain/kernel/plain/kernel: "
             f"plain {turns[0]:.3f} / {turns[2]:.3f} ms (median of "
-            f"{TIMING_REPS}), kernel {turns[1]:.4f} / {turns[3]:.4f} ms "
+            f"{TIMING_REPS}), kernel {turns[1]:.5f} / {turns[3]:.5f} ms "
             f"(device_ms); "
-            f"bound {bound[0]:.4f} ms by {bound[1]} "
-            f"({100 * bound[0] / min(turns[1], turns[3]):.1f} % of it)")
+            f"bound {bound[0]:.5f} ms by {bound[1]} "
+            f"({100 * bound[0] / min(turns[1], turns[3]):.1f} % of it"
+            f"{terms})")
         return {"ms": min(turns[1], turns[3]),
                 "plain_ms": min(turns[0], turns[2]),
                 "bound_ms": bound[0], "bound_by": bound[1]}
@@ -937,10 +1107,8 @@ def phase_dp_batches(capture: DPCapture, int_rate: float):
     for stage in ("align_frags", "align_jumps"):
         keys = [k for k in capture.kept if k[:2] == ("banded_bp", stage)]
         check(bool(keys), f"run_full made no bit-parallel call in {stage}")
-        bp[stage] = timed(max(keys, key=lambda k: k[2] * k[3]),
-                          BP_OPS_PER_ROW)
-    general = [timed(k, (2 * k[5] + 1) * GENERAL_OPS_PER_SLOT)
-               for k in sorted(capture.kept, key=str)
+        bp[stage] = timed(max(keys, key=lambda k: k[2] * k[3]))
+    general = [timed(k) for k in sorted(capture.kept, key=str)
                if k[0] == "banded_general"]
     bp_record = {"max_abs_err": max_err["banded_bp"], **bp["align_frags"],
                  "library_ms": None,
@@ -950,7 +1118,8 @@ def phase_dp_batches(capture: DPCapture, int_rate: float):
     general_record = {"max_abs_err": max_err["banded_general"],
                       "run_full_ms": [g["ms"] for g in general],
                       "run_full_plain_ms": [g["plain_ms"] for g in general],
-                      "run_full_bound_ms": [g["bound_ms"] for g in general]}
+                      "run_full_bound_ms": [g["bound_ms"] for g in general],
+                      "run_full_bound_by": [g["bound_by"] for g in general]}
     return bp_record, general_record
 
 
@@ -1034,6 +1203,104 @@ def phase_full(genome_size: int, seed: int, capture: DPCapture):
     return total
 
 
+# Phase 9's inputs and files, as tests/test_torch_full.py makes and
+# compares them: a 40 kb genome with a two-copy 2.5 kb exact repeat, 40x
+# fragment reads and 15x jump reads of 4000 +- 350, batch_reads 4096
+CMP_GENOME, CMP_REPEAT, CMP_LOCI = 40_000, 2_500, (10_000, 25_000)
+CMP_ARTIFACTS = ("kspec_25mer", "jump_reads_ec", "jump_alignlets",
+                 "jump_distribs", "frag_alignlets", "unibases",
+                 "contigs_final")
+CMP_TEXT_FILES = ("assembly.superb", "assembly.agp", "final.assembly.fasta",
+                  "final.assembly.efasta", "submission/contigs.fsa",
+                  "submission/assembly.agp", "submission/scaffolds.fsa",
+                  "assembly.report")
+
+
+def cmp_inputs(rd):
+    """Save the 40 kb repeat genome's inputs in run dir `rd` (the port's
+    eval/sim with tests/test_torch_full.py's seeds)."""
+    from allpathslg_tpu_torch.eval import sim
+
+    g = sim.random_genome(CMP_GENOME, seed=71)
+    a, b = CMP_LOCI
+    g[b:b + CMP_REPEAT] = g[a:a + CMP_REPEAT]
+    fb, fp, _ = sim.simulate_paired_reads(g, coverage=40, error_rate=0.005,
+                                          seed=1)
+    jb, jp, _ = sim.simulate_paired_reads(
+        g, coverage=15, error_rate=0.005, insert_mean=4000, insert_sd=350,
+        outward=True, seed=2)
+    rd.save_arrays("frag_reads_orig", codes=np.asarray(fb.codes),
+                   lengths=np.asarray(fb.lengths), quals=np.asarray(fb.quals),
+                   pairs=np.asarray(fp.pairs))
+    rd.save_arrays("jump_reads_orig", codes=np.asarray(jb.codes),
+                   lengths=np.asarray(jb.lengths), quals=np.asarray(jb.quals),
+                   pairs=np.asarray(jp.pairs),
+                   lib_sep=np.array([4000], np.int32),
+                   lib_sd=np.array([350], np.int32))
+    rd.save_arrays("genome_truth", genome=np.asarray(g))
+
+
+def phase_full_compare():
+    """run_full through the port on the card and on the CPU over the same
+    40 kb inputs; checks that the general kernel launched in patch_gaps on
+    the card and that every artifact of CMP_ARTIFACTS, every file of
+    CMP_TEXT_FILES and every stage metric is the same, byte for byte.
+    Returns the card run's launches by kernel."""
+    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
+    from allpathslg_tpu_torch.pipeline.rundir import RunDir
+    from allpathslg_tpu_torch.pipeline.stages import Pipeline
+
+    rds = {}
+    for device in ("cuda", "cpu"):
+        run_dir = ROOT / "build" / f"chip_smoke_cmp_{device}"
+        shutil.rmtree(run_dir, ignore_errors=True)
+        rd = RunDir(str(run_dir))
+        cmp_inputs(rd)
+        pipe = Pipeline(rd, AssemblyConfig.from_overrides(batch_reads=4096),
+                        lambda *a: None, device=device)
+        launches.reset()
+        t0 = time.perf_counter()
+        pipe.run_full()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_stage = launches.by_stage()
+        say(f"[compare] run_full on {device}: {wall:.1f} s; launches by "
+            f"stage {by_stage}")
+        if device == "cuda":
+            card = {k: launches.count(k) for k in ("radix_sort", "banded_bp",
+                                                    "banded_general")}
+            check(by_stage.get("patch_gaps", {}).get("banded_general", 0) > 0,
+                  "the 40 kb run_full on the card never launched the general "
+                  "kernel in patch_gaps")
+        rds[device] = rd
+    gpu, cpu = rds["cuda"], rds["cpu"]
+    for art in CMP_ARTIFACTS:
+        a, b = gpu.load_arrays(art), cpu.load_arrays(art)
+        check(sorted(a) == sorted(b), f"{art}: keys {sorted(a)} on the card, "
+              f"{sorted(b)} on the CPU")
+        for k in a:
+            check(a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+                  and a[k].tobytes() == b[k].tobytes(),
+                  f"{art}[{k}] differs between the card and the CPU")
+    for name in CMP_TEXT_FILES:
+        a = Path(gpu.file_path(name)).read_bytes()
+        b = Path(cpu.file_path(name)).read_bytes()
+        check(a and a == b, f"{name} differs between the card and the CPU")
+    for stage in FULL_STAGES:
+        check(gpu.metrics(stage) == cpu.metrics(stage),
+              f"{stage} metrics differ: card {gpu.metrics(stage)}, CPU "
+              f"{cpu.metrics(stage)}")
+    say(f"[compare] card == CPU: {len(CMP_ARTIFACTS)} artifacts, "
+        f"{len(CMP_TEXT_FILES)} files and {len(FULL_STAGES)} stages' metrics "
+        f"byte-identical; patch_gaps closed "
+        f"{gpu.metrics('patch_gaps')['n_gaps_closed']} gaps; card launches "
+        f"{card}")
+    for rd in rds.values():
+        shutil.rmtree(rd.path, ignore_errors=True)
+    return card
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genome-size", type=int, default=1_000_000,
@@ -1048,19 +1315,21 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     name, int_rate = phase_card()
     phase_build()
+    chain = chain_terms()
     codes = flagship_codes(args.seed)
     record = phase_sort(codes, args.seed)
     phase_spectrum(codes)
     set_a_record = phase_banded(args.seed, int_rate)
-    general_record = phase_banded_general(args.seed, int_rate)
+    general_record = phase_banded_general(args.seed, int_rate, chain)
     slice_launches = phase_slice(args.genome_size, args.seed)
     capture = DPCapture()
     full_launches = phase_full(args.full_genome_size, args.seed, capture)
-    bp_record, general_full = phase_dp_batches(capture, int_rate)
+    bp_record, general_full = phase_dp_batches(capture, int_rate, chain)
     bp_record["max_abs_err"] = max(bp_record["max_abs_err"],
                                    set_a_record.pop("max_abs_err"))
     general_record["max_abs_err"] = max(general_record["max_abs_err"],
                                         general_full.pop("max_abs_err"))
+    phase_full_compare()
     say(json.dumps({"kernels": [{
         "name": "radix_sort_u64", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/radix_sort.cu",

@@ -9,8 +9,9 @@ N codes (a query code 4 matches a target code 4 here), q_len = 0 rows and
 offsets outside the feasible window; and `np_banded_oracle` on a sample.
 The Pallas kernel takes batches in multiples of 128, so its call pads
 with q_len = 0 rows, as the reference's dispatcher does. The
-`cuda`-marked case holds the kernel against the plain version on a card
-and skips without one.
+`cuda`-marked cases hold the kernel against the plain version on a card
+(bands 0-255, B = 1, run_full's B = 8 shapes, short targets and edge
+offsets) and skip without one.
 """
 
 import numpy as np
@@ -91,14 +92,10 @@ def test_plain_matches_pallas_jnp_and_oracle(band, sc, gc):
             assert got[1][i] == oe
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("band", [16, 96, 192, 255])
-def test_kernel_matches_plain_on_card(band):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    rng = np.random.default_rng(2000 + band)
-    cpu = [torch.from_numpy(a) for a in _batch(rng, 64, 460, band)]
-    for sc, gc in ((1, 1), (2, 3)):
+def _held_on_card(cpu, band, costs=((1, 1), (2, 3))):
+    """The kernel on the card == the plain version on the CPU, one launch
+    a call."""
+    for sc, gc in costs:
         before = bg.launch_count()
         cost, t_end = bg.banded_align_general(*(a.cuda() for a in cpu),
                                               band=band, sub_cost=sc,
@@ -109,3 +106,36 @@ def test_kernel_matches_plain_on_card(band):
                                                  sub_cost=sc, gap_cost=gc)
         assert torch.equal(cost.cpu(), want_c)
         assert torch.equal(t_end.cpu(), want_e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [0, 1, 2, 15, 16, 96, 192, 255])
+def test_kernel_matches_plain_on_card(band):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(2000 + band)
+    _held_on_card([torch.from_numpy(a) for a in _batch(rng, 64, 460, band)],
+                  band)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 128, 160, 16), (8, 64, 512, 192),
+                                   (8, 128, 512, 96), (8, 128, 512, 48)])
+def test_kernel_matches_plain_on_card_at_callers_shapes(shape):
+    """B = 1 at band 16 (assisted) and run_full's three B = 8 patch_gaps
+    batches (chip_smoke.patch_problems); then a target shorter than the
+    band's K with every q_len = Lq and offsets at both edges of the
+    feasible window (chip_smoke.edge_problems)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+
+    B, Lq, Lt, band = shape
+    rng = np.random.default_rng(sum(shape))
+    if B == 1:
+        arrays = chip_smoke.dp_problems(rng, 1, Lq, Lt, band)
+    else:
+        arrays = chip_smoke.patch_problems(rng, B, Lq, Lt, band)
+    _held_on_card([torch.from_numpy(a) for a in arrays], band)
+    edges = chip_smoke.edge_problems(rng, 512, 64, 160, band)
+    _held_on_card([torch.from_numpy(a) for a in edges], band)
