@@ -111,6 +111,17 @@ def banded_align_auto(q, q_len, t, t_len, offset, band: int = 16,
         gap_cost=gap_cost)
 
 
+def banded_align_host(q, q_len, t, t_len, offset, band: int, device,
+                      sub_cost: int = 1, gap_cost: int = 1):
+    """banded_align_auto on host arrays: uploads the batch to `device` and
+    returns (cost, t_end) as numpy int32 [B]."""
+    args = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (q, q_len, t, t_len, offset))
+    cost, t_end = banded_align_auto(*args, band=band, sub_cost=sub_cost,
+                                    gap_cost=gap_cost)
+    return cost.cpu().numpy(), t_end.cpu().numpy()
+
+
 def np_banded_oracle(q, t, offset, band, sub_cost=1, gap_cost=1):
     """Unbanded-with-mask python oracle for tests (same semantics)."""
     Lq, Lt = len(q), len(t)

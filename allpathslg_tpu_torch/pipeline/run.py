@@ -5,14 +5,14 @@ Usage (simulated input, the built-in test oracle):
   python -m allpathslg_tpu_torch.pipeline.run --run-dir /tmp/run1 \\
       --sim-genome 100000 --coverage 50 --error-rate 0.005 \\
       [--jump-coverage 50 --jump-insert 3000 --jump-sd 300] \\
+      [--long-jump-libs 12000:1200:6] [--pacbio-coverage 8] \\
       [--device cuda] [--k 96] [KEY=VALUE ...]
 
 KEY=VALUE pairs override any AssemblyConfig field (ref: RunAllPathsLG's
-ArachneArgs KEY=VALUE forwarding). The run goes through `run_full` on
-`--device` (default cuda). Not ported yet (ROADMAP.md), and raising
-NotImplementedError: FASTQ import (--frag-fastq), library sheets
-(--in-libs/--in-groups), long-jump libraries (--long-jump-libs) and PacBio
-reads (--pacbio-coverage).
+ArachneArgs KEY=VALUE forwarding; `assist_ref=related.fasta` adds the
+assisted stage). The run goes through `run_full` on `--device` (default
+cuda). Not ported yet (ROADMAP.md), and raising NotImplementedError: FASTQ
+import (--frag-fastq) and library sheets (--in-libs/--in-groups).
 """
 
 from __future__ import annotations
@@ -47,13 +47,16 @@ def _log_factory(rd: RunDir):
 def prepare_sim_inputs(rd: RunDir, genome_size: int, coverage: float,
                        error_rate: float, read_len: int, seed: int, log,
                        jump_coverage: float = 0.0, jump_insert: int = 3000,
-                       jump_sd: int = 300, jump_libs=None):
+                       jump_sd: int = 300, pacbio_coverage: float = 0.0,
+                       jump_libs=None, long_jump_libs=None):
     """PrepareAllPathsInputs analog for simulated data; also stores the
     truth genome. Same seeds and artifacts as the reference.
 
     `jump_libs` is an optional list of (insert, sd, coverage) tuples for
     multi-library jump simulation; it supersedes the single
-    jump_coverage/insert/sd knobs."""
+    jump_coverage/insert/sd knobs. `long_jump_libs` is a list of the same
+    tuples for long-jump libraries; `pacbio_coverage` > 0 adds PacBio long
+    reads."""
     genome = sim.random_genome(genome_size, seed=seed)
     batch, pairs, _ = sim.simulate_paired_reads(
         genome, coverage=coverage, read_len=read_len,
@@ -67,41 +70,74 @@ def prepare_sim_inputs(rd: RunDir, genome_size: int, coverage: float,
     log(f"[prepare] simulated genome={genome_size} reads={batch.n_reads}")
     if jump_libs is None and jump_coverage > 0:
         jump_libs = [(jump_insert, jump_sd, jump_coverage)]
-    if not jump_libs:
-        return
+    if jump_libs:
+        _save_jump_libs(rd, "jump_reads_orig", "jump", 2, genome,
+                        read_len, error_rate, seed, log, jump_libs)
+    if long_jump_libs:
+        # long-jump (Fosill-class) libraries: the same outward chemistry,
+        # much larger inserts
+        _save_jump_libs(rd, "long_jump_reads_orig", "long-jump", 101,
+                        genome, read_len, error_rate, seed, log,
+                        long_jump_libs)
+    if pacbio_coverage > 0:
+        lr, _, _ = sim.simulate_long_reads(genome, coverage=pacbio_coverage,
+                                           seed=seed + 3)
+        flat = np.concatenate(lr) if lr else np.zeros(0, np.uint8)
+        offs = np.zeros(len(lr) + 1, np.int64)
+        np.cumsum([len(r) for r in lr], out=offs[1:])
+        rd.save_arrays("long_reads_orig", bases=flat, offsets=offs)
+        log(f"[prepare] simulated {len(lr)} PacBio long reads")
+
+
+def _save_jump_libs(rd, artifact, label, seed_base, genome, read_len,
+                    error_rate, seed, log, libs):
+    """Simulates outward jump libraries [(insert, sd, coverage)] from
+    `genome` (library li with seed seed + seed_base + 31 * li, as the
+    reference's) and saves them as `artifact`."""
     parts = []
-    for li, (ins, sd, cov) in enumerate(jump_libs):
+    for li, (ins, sd, cov) in enumerate(libs):
         jb, jp, _ = sim.simulate_paired_reads(
             genome, coverage=cov, read_len=read_len,
             error_rate=error_rate, insert_mean=ins,
-            insert_sd=sd, outward=True, seed=seed + 2 + 31 * li)
-        parts.append((jb, jp))
-        log(f"[prepare] simulated jump lib {li} reads={jb.n_reads} "
+            insert_sd=sd, outward=True, seed=seed + seed_base + 31 * li)
+        parts.append((ins, sd, jb, jp))
+        log(f"[prepare] simulated {label} lib {li} reads={jb.n_reads} "
             f"insert={ins}±{sd}")
+    rd.save_arrays(artifact, **jump_lib_arrays(parts))
+
+
+def jump_lib_arrays(parts) -> dict:
+    """One jump artifact's arrays from simulated libraries
+    [(insert, sd, ReadBatch, PairTable)]: reads padded to one length
+    (code 4, quality 0), pairs renumbered into the pooled reads, lib_id
+    by position in `parts`."""
+    lmax = max(jb.codes.shape[1] for _, _, jb, _ in parts)
     n_at = 0
     codes, lens, quals, prs, libids = [], [], [], [], []
-    lmax = max(p[0].codes.shape[1] for p in parts)
-    for li, (jb, jp) in enumerate(parts):
+    for li, (_, _, jb, jp) in enumerate(parts):
         c = np.asarray(jb.codes)
         q = np.asarray(jb.quals)
-        if c.shape[1] < lmax:
-            c = np.pad(c, ((0, 0), (0, lmax - c.shape[1])),
-                       constant_values=4)
-            q = np.pad(q, ((0, 0), (0, lmax - q.shape[1])))
-        codes.append(c)
-        quals.append(q)
+        codes.append(np.pad(c, ((0, 0), (0, lmax - c.shape[1])),
+                            constant_values=4))
+        quals.append(np.pad(q, ((0, 0), (0, lmax - q.shape[1]))))
         lens.append(np.asarray(jb.lengths))
         prs.append(np.asarray(jp.pairs) + n_at)
         libids.append(np.full(len(jp.pairs), li, np.int32))
         n_at += jb.n_reads
-    rd.save_arrays("jump_reads_orig",
-                   codes=np.concatenate(codes),
-                   lengths=np.concatenate(lens),
-                   quals=np.concatenate(quals),
-                   pairs=np.concatenate(prs),
-                   lib_id=np.concatenate(libids),
-                   lib_sep=np.array([l[0] for l in jump_libs], np.int32),
-                   lib_sd=np.array([l[1] for l in jump_libs], np.int32))
+    return dict(codes=np.concatenate(codes),
+                lengths=np.concatenate(lens),
+                quals=np.concatenate(quals),
+                pairs=np.concatenate(prs),
+                lib_id=np.concatenate(libids),
+                lib_sep=np.array([p[0] for p in parts], np.int32),
+                lib_sd=np.array([p[1] for p in parts], np.int32))
+
+
+def _libspec(spec: str):
+    """'ins:sd:cov,ins:sd:cov,...' -> [(ins, sd, cov), ...] or None."""
+    return ([tuple(float(x) if i == 2 else int(x)
+                   for i, x in enumerate(one.split(":")))
+             for one in spec.split(",")] if spec else None)
 
 
 def main(argv=None):
@@ -126,20 +162,17 @@ def main(argv=None):
                     help="multi-library jump spec 'ins:sd:cov,ins:sd:cov,...'"
                          " (e.g. 3000:300:50,10000:1000:10)")
     ap.add_argument("--long-jump-libs", default="",
-                    help="long-jump spec 'ins:sd:cov,...' (not ported)")
+                    help="long-jump (Fosill-class) spec 'ins:sd:cov,...'"
+                         " consumed by the second scaffolding pass")
     ap.add_argument("--pacbio-coverage", type=float, default=0.0,
-                    help="PacBio long-read coverage (not ported)")
+                    help="PacBio long-read coverage")
     ap.add_argument("--k", type=int, default=96)
     ap.add_argument("overrides", nargs="*", help="KEY=VALUE config overrides")
     args = ap.parse_args(argv)
 
     for flag, given in (("--frag-fastq (FASTQ import)", args.frag_fastq),
                         ("--in-libs/--in-groups (library sheets)",
-                         args.in_libs or args.in_groups),
-                        ("--long-jump-libs (long-jump libraries)",
-                         args.long_jump_libs),
-                        ("--pacbio-coverage (PacBio long reads)",
-                         args.pacbio_coverage > 0)):
+                         args.in_libs or args.in_groups)):
         if given:
             raise _not_ported(flag)
 
@@ -160,15 +193,14 @@ def main(argv=None):
     if not rd.has("frag_reads_orig"):
         if not args.sim_genome:
             ap.error("need --sim-genome (or an existing run dir)")
-        jump_libs = ([tuple(float(x) if i == 2 else int(x)
-                            for i, x in enumerate(spec.split(":")))
-                      for spec in args.jump_libs.split(",")]
-                     if args.jump_libs else None)
         prepare_sim_inputs(rd, args.sim_genome, args.coverage,
                            args.error_rate, args.read_len, args.seed, log,
                            jump_coverage=args.jump_coverage,
                            jump_insert=args.jump_insert,
-                           jump_sd=args.jump_sd, jump_libs=jump_libs)
+                           jump_sd=args.jump_sd,
+                           pacbio_coverage=args.pacbio_coverage,
+                           jump_libs=_libspec(args.jump_libs),
+                           long_jump_libs=_libspec(args.long_jump_libs))
 
     pipe = Pipeline(rd, cfg, log, device=args.device)
     final = pipe.run_full()

@@ -14,7 +14,11 @@
   make_scaffolds      (ref: MakeScaffolds + RemodelGaps +
                        TagCircularScaffolds)
   align_frags         (ref: AlignPairsToHyper for the fragment library)
+  long_jump_scaffolds (ref: MakeScaffolds' later passes with long-jump
+                       libraries)
   patch_gaps          (ref: PostPatcher)
+  long_read_patch     (ref: LongReadPostPatcher, PacBio consensus patches)
+  assisted            (ref: AssistedPatcher, an assisting reference)
   polish              (ref: FixSomeIndels / FixLocal)
   clean_final         (ref: CleanAssembly)
   evaluate            (ref: AssemblyAccuracy, EVALUATION=STANDARD/FULL)
@@ -29,11 +33,9 @@ byte for byte, and resumes from the same manifest. The stages run on the
 torch device the Pipeline is given; the read set is uploaded once and
 stays resident on it across the EC stages (dtypes/devcache).
 
-Not ported yet (see ROADMAP.md): long_jump_scaffolds, long_read_patch and
-assisted raise NotImplementedError, and so does `run_full` on a run
-directory with long-jump or long reads or with an `assist_ref`; so do the
-options a multi-device mesh (n_devices > 1), profile_dir, check_mode and
-evaluation="CHEAT".
+Not ported yet (see ROADMAP.md): the options a multi-device mesh
+(n_devices > 1), profile_dir, check_mode and evaluation="CHEAT" raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -932,7 +934,51 @@ class Pipeline:
                               ["assembly.superb", "assembly.agp"], fn)
 
     def long_jump_scaffolds(self):
-        raise _not_ported("long_jump_scaffolds (long-jump libraries)")
+        """Second MakeScaffolds pass with long-jump libraries: scaffolds
+        become super-contigs, long-jump pairs join them (ref:
+        src/paths/MakeScaffolds*.cc later iterations admitting long jumps;
+        SURVEY.md §2.5 row 17)."""
+        rd = self.rd
+        from allpathslg_tpu_torch.ec import jump as jec
+        from allpathslg_tpu_torch.scaffold import longjump as slj
+        from allpathslg_tpu_torch.scaffold import superb as ssb
+
+        ih = rd.hash_of("long_jump_scaffolds",
+                        self._art_hash("long_jump_reads_orig"),
+                        self._art_hash("unibases"),
+                        str(rd.metrics("make_scaffolds")))
+
+        def fn():
+            if not rd.has("long_jump_reads_orig"):
+                return {"skipped": "no long-jump library"}
+            # EC exactly like regular jumps (trusted-prefix truncation)
+            a = rd.load_arrays("long_jump_reads_orig", mmap=True)
+            c, q, l, pair_ok, m = jec.error_correct_jumps(
+                a["codes"], a["quals"], a["lengths"], a["pairs"],
+                self._strong_table(), device=self.device)
+            rd.save_arrays("long_jump_reads_ec", codes=c, quals=q,
+                           lengths=l, pairs=a["pairs"], pair_ok=pair_ok)
+            am = self._align_reads_to_contigs("long_jump_reads_ec",
+                                              "long_jump_alignlets")
+            al = rd.load_arrays("long_jump_alignlets")
+            u = rd.load_arrays("unibases")
+            clens = np.diff(u["offsets"]).astype(np.int64)
+            scaffolds = ssb.read_superb(rd.file_path("assembly.superb"))
+            lib_id = np.asarray(a.get("lib_id",
+                                      np.zeros(len(a["pairs"]), np.int32)))
+            out, mm = slj.long_jump_pass(
+                scaffolds, clens, al["contig"], al["anchor"], al["is_rc"],
+                al["aligned"], l, a["pairs"],
+                np.asarray(a.get("lib_sep", np.array([10000])), np.int64),
+                np.asarray(a.get("lib_sd", np.array([1000])), np.int64),
+                lib_ids=lib_id)
+            ssb.write_superb(rd.file_path("assembly.superb"), out)
+            ssb.write_agp(rd.file_path("assembly.agp"), out, clens)
+            st = stats.assembly_stats([sb.length(clens) for sb in out])
+            return {**m, **am, **mm, "scaffold_n50": st["n50"]}
+
+        return self.run_stage("long_jump_scaffolds", ih,
+                              ["assembly.superb"], fn)
 
     def patch_gaps(self):
         """PostPatcher: close scaffold junctions with read pileup
@@ -982,10 +1028,145 @@ class Pipeline:
                                "assembly.agp"], fn)
 
     def long_read_patch(self):
-        raise _not_ported("long_read_patch (PacBio long reads)")
+        """LongReadPostPatcher: close residual scaffold gaps with PacBio
+        consensus patches (short-read polish cleans them downstream)."""
+        rd = self.rd
+        from allpathslg_tpu_torch.asm import longread as alr
+        from allpathslg_tpu_torch.asm.amb import AmbTable
+        from allpathslg_tpu_torch.asm.patch import _oriented
+        from allpathslg_tpu_torch.scaffold import superb as ssb
+
+        ih = rd.hash_of("long_read_patch", self._art_hash("long_reads_orig"),
+                        self._art_hash("contigs_final"))
+
+        def fn():
+            if not rd.has("long_reads_orig"):
+                return {"skipped": "no long reads"}
+            u = self._final_contigs()
+            contigs = _contig_list(u)
+            long_reads = _contig_list(rd.load_arrays("long_reads_orig",
+                                                     mmap=True))
+            lcfg = alr.LongReadConfig()
+            index = alr.LongReadIndex(long_reads, lcfg.K)
+            scaffolds = ssb.read_superb(rd.file_path("assembly.superb"))
+            n_closed = 0
+            amb = AmbTable.from_arrays(u)
+            # piece provenance per CURRENT contig: list of
+            # (orig_src, flip, lo, hi, src_len, dst_off) in the
+            # amb.from_pieces convention — merges compose it, so diploid
+            # ambiguity records survive gap closure
+            pm = {c: [(c, False, 0, len(contigs[c]), len(contigs[c]), 0)]
+                  for c in range(len(contigs))}
+
+            def _compose(plist, flip, base, L_cur):
+                out = []
+                for (src, fl, lo, hi, slen, doff) in plist:
+                    plen = hi - lo
+                    if not flip:
+                        out.append((src, fl, lo, hi, slen, base + doff))
+                    else:
+                        out.append((src, not fl, slen - hi, slen - lo, slen,
+                                    base + (L_cur - doff - plen)))
+                return out
+
+            for sb in scaffolds:
+                j = 0
+                while j < len(sb.gaps):
+                    c1, f1 = sb.contig_ids[j], sb.rc[j]
+                    c2, f2 = sb.contig_ids[j + 1], sb.rc[j + 1]
+                    s1 = _oriented(np.asarray(contigs[c1]), f1)
+                    s2 = _oriented(np.asarray(contigs[c2]), f2)
+                    merged = alr.close_gap_with_long_reads(
+                        s1, s2, sb.gaps[j], sb.gap_devs[j], long_reads,
+                        lcfg, index=index, device=self.device)
+                    if merged is not None:
+                        contigs.append(merged)
+                        nid = len(contigs) - 1
+                        base2 = len(merged) - len(s2)
+                        pm[nid] = (_compose(pm[c1], f1, 0, len(s1))
+                                   + _compose(pm[c2], f2, base2, len(s2)))
+                        sb.contig_ids[j : j + 2] = [nid]
+                        sb.rc[j : j + 2] = [False]
+                        del sb.gaps[j]
+                        del sb.gap_devs[j]
+                        n_closed += 1
+                    else:
+                        j += 1
+            used = sorted({c for sb in scaffolds for c in sb.contig_ids})
+            remap = {c: i for i, c in enumerate(used)}
+            bases, offsets = _flatten([contigs[c] for c in used])
+            for sb in scaffolds:
+                sb.contig_ids = [remap[c] for c in sb.contig_ids]
+            rows = [(src, remap[c], fl, lo, hi, slen, doff)
+                    for c in used for (src, fl, lo, hi, slen, doff) in pm[c]]
+            amb2 = amb.from_pieces(rows)
+            rd.save_arrays("contigs_final", bases=bases, offsets=offsets,
+                           **amb2.to_arrays())
+            ssb.write_superb(rd.file_path("assembly.superb"), scaffolds)
+            return {"n_gaps_closed": int(n_closed),
+                    "n_ambiguities_kept": amb2.n}
+
+        return self.run_stage("long_read_patch", ih,
+                              ["contigs_final.npz", "assembly.superb"], fn)
 
     def assisted(self):
-        raise _not_ported("assisted (assisting reference, assist_ref)")
+        """AssistedPatcher (ref: src/paths/assisted/): a related genome
+        proposes scaffold-gap patches; reads must confirm every splice."""
+        cfg, rd = self.cfg, self.rd
+        from allpathslg_tpu_torch.asm import assisted as aast
+        from allpathslg_tpu_torch.scaffold import superb as ssb
+
+        ih = rd.hash_of("assisted", self._art_hash("contigs_final"),
+                        cfg.assist_ref)
+
+        def fn():
+            if not cfg.assist_ref:
+                return {"skipped": "no assisting reference"}
+            recs = fio.read_fasta(cfg.assist_ref)
+            # concatenate records; N separators make invalid kmer windows
+            sep = np.full(64, 4, np.uint8)
+            parts = []
+            for _, seq in recs:
+                parts.extend([seq.astype(np.uint8), sep])
+            genome = np.concatenate(parts[:-1]) if parts \
+                else np.zeros(0, np.uint8)
+            contigs = _contig_list(self._final_contigs())
+            scaffolds = ssb.read_superb(rd.file_path("assembly.superb"))
+            fr = rd.load_arrays("filled_reads", mmap=True)
+            acfg = aast.AssistConfig(patch_K=cfg.K_ec)
+            ck = kcount.trim_to_host(
+                self._count_streaming(fr["codes"], acfg.patch_K))
+            placements = aast.place_contigs(contigs, genome, acfg,
+                                            self.device)
+            # chain contigs that jump data left as singletons, then patch
+            # every junction (existing + assisted) with read confirmation
+            singles = {sb.contig_ids[0] for sb in scaffolds
+                       if sb.n_contigs == 1}
+            multi = [sb for sb in scaffolds if sb.n_contigs > 1]
+            pl_sub = [p if (p is not None and p.contig in singles) else None
+                      for p in placements]
+            chained = aast.assist_scaffold(pl_sub, len(contigs), acfg)
+            chained = [sb for sb in chained
+                       if all(c in singles for c in sb.contig_ids)]
+            n_joins = sum(max(0, sb.n_contigs - 1) for sb in chained)
+            contigs2, scaffolds2, m = aast.assisted_patch(
+                multi + chained, contigs, genome, placements, ck, acfg,
+                self.device)
+            m["n_assisted_joins"] = n_joins
+            used = sorted({c for sb in scaffolds2 for c in sb.contig_ids})
+            remap = {c: i for i, c in enumerate(used)}
+            bases, offsets = _flatten([contigs2[c] for c in used])
+            for sb in scaffolds2:
+                sb.contig_ids = [remap[c] for c in sb.contig_ids]
+            # without the ambiguity arrays, as the reference saves it
+            # (ROADMAP.md Queue 3): a diploid run loses its {a,b} records
+            rd.save_arrays("contigs_final", bases=bases, offsets=offsets)
+            ssb.write_superb(rd.file_path("assembly.superb"), scaffolds2)
+            m["n_contigs_placed"] = sum(p is not None for p in placements)
+            return m
+
+        return self.run_stage("assisted", ih,
+                              ["contigs_final.npz", "assembly.superb"], fn)
 
     def polish(self):
         """FixSomeIndels-style consensus polish of the final contigs."""
@@ -1307,16 +1488,10 @@ class Pipeline:
         (the `make -j` analog of RunAllPathsLG's Makefile DAG): device work
         still serializes on the one device, but host compute, file IO and
         device work overlap (jump EC vs the frag clean/fill chain; frag vs
-        jump alignment). A run directory with long-jump or long reads, or
-        an `assist_ref`, needs stages not ported yet and raises before any
-        stage runs."""
+        jump alignment). Long-jump libraries add a second scaffolding pass
+        before patch_gaps; long reads and an `assist_ref` add
+        long_read_patch and assisted, in that order, before polish."""
         rd = self.rd
-        for unported, present in (
-                (self.long_jump_scaffolds, rd.has("long_jump_reads_orig")),
-                (self.long_read_patch, rd.has("long_reads_orig")),
-                (self.assisted, bool(self.cfg.assist_ref))):
-            if present:
-                unported()          # raises NotImplementedError
         jobs: Dict[str, tuple] = {
             "validate_inputs": ((), self.validate_inputs),
             "remove_dodgy": ((), self.remove_dodgy),
@@ -1333,10 +1508,21 @@ class Pipeline:
         else:
             sc_deps = ("unipaths",)
         jobs["make_scaffolds"] = (sc_deps, self.make_scaffolds)
+        sc_last = "make_scaffolds"
+        if rd.has("long_jump_reads_orig"):
+            jobs["long_jump_scaffolds"] = (("make_scaffolds",),
+                                           self.long_jump_scaffolds)
+            sc_last = "long_jump_scaffolds"
         jobs["align_frags"] = (("unipaths",), self.align_frags)
-        jobs["patch_gaps"] = (("align_frags", "make_scaffolds"),
-                              self.patch_gaps)
-        jobs["polish"] = (("patch_gaps",), self.polish)
+        jobs["patch_gaps"] = (("align_frags", sc_last), self.patch_gaps)
+        tail = "patch_gaps"
+        if rd.has("long_reads_orig"):
+            jobs["long_read_patch"] = ((tail,), self.long_read_patch)
+            tail = "long_read_patch"
+        if self.cfg.assist_ref:
+            jobs["assisted"] = ((tail,), self.assisted)
+            tail = "assisted"
+        jobs["polish"] = ((tail,), self.polish)
         jobs["clean_final"] = (("polish",), self.clean_final)
         jobs["finalize"] = (("clean_final",), self.finalize)
         jobs["submission_prep"] = (("clean_final",), self.submission_prep)

@@ -2,7 +2,7 @@
 """GPU smoke run of the PyTorch + CUDA port (allpathslg_tpu_torch).
 
     python3 chip_smoke.py [--genome-size N] [--full-genome-size N]
-                          [--seed S]
+                          [--diploid-genome-size N] [--seed S]
 
 Needs one CUDA GPU (it raises without one) and `nvcc`; it imports nothing
 of JAX or of the JAX package. Phases, each printed as it ends:
@@ -33,8 +33,10 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      1-2 indels, ragged lengths, infeasible offsets), (b) bands 1 and 15,
      (c) bench.py's DP shape (16,384 x 100 x 140, band 15) and (d) an
      N-bearing batch (against the plain version on the query with code
-     4 -> 6); kernel (device_ms) and plain version (median_ms) timed in
-     turns at (a) and (c);
+     4 -> 6) and (e) consensus-shaped batches (refine_consensus's: B =
+     256 with 37 real rows, Lq = Lt = 32, band 6, q_len 20-30, the other
+     219 rows q_len = t_len = 0; consensus_problems); kernel (device_ms)
+     and plain version (median_ms) timed in turns at (a), (c) and (e);
   6. general banded-DP parity on the card: the kernel against its plain
      version (ops/banded.banded_align), exactly, on GENERAL_SETS: (1)
      bands 16, 24, 48, 96 and 192 at 16,384 x 256 x 512 (ragged, with
@@ -45,14 +47,19 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      at band 192, 8 x 128 x 512 at bands 96 and 48; patch_problems), (6)
      B = 1 at band 16 (assisted's), (7) bands 0, 1, 2, 15 and 255 and (8)
      targets shorter than K with q_len = Lq and offsets at both edges of
-     the feasible window (edge_problems); kernel (device_ms) and plain
-     version (median_ms) in turns at (1, band 96), (3), (5) and (6), each
-     with its bound and the bound's three terms (general_bound);
+     the feasible window (edge_problems) and (9) medoid-shaped batches
+     (consensus_patch's all pairs of noisy copies of one gap, lengths
+     ragged within +- 12 %, the rest of B rows q_len = t_len = 0; pairs
+     further apart than the band have no in-band path: medoid_problems)
+     at 128 x 3,072 x 3,072 (121 real rows) bands 192 and 96 and 128 x
+     12,000 x 12,000 (16 real rows) band 192; kernel (device_ms) and plain
+     version (median_ms) in turns at (1, band 96), (3), (5), (6) and (9),
+     each with its bound and the bound's three terms (general_bound);
   7. the contig slice and align_frags through Pipeline(device="cuda"):
      prepare_sim_inputs -> validate_inputs -> remove_dodgy -> precorrect
      -> find_errors -> clean_reads -> fill_fragments -> unipaths ->
      report -> align_frags on a simulated genome (--genome-size, default
-     1 Mb, 100x fragment coverage, 100 bp reads, 0.5 % error, seed 0,
+     200 kb, 100x fragment coverage, 100 bp reads, 0.5 % error, seed 0,
      batch_reads 65536), with each stage's wall time and kernel launches.
      It checks that the sort kernel ran in validate_inputs, precorrect,
      find_errors and unipaths and the banded kernel in align_frags; that
@@ -87,21 +94,48 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      repeat (40x fragment, 15x jump reads of 4000 +- 350, batch_reads
      4096; cmp_inputs): the general kernel must launch in patch_gaps on
      the card, and every artifact of CMP_ARTIFACTS, every file of
-     CMP_TEXT_FILES and every stage metric must be byte-identical.
+     CMP_TEXT_FILES and every stage metric must be byte-identical;
+ 9b. the same on tests/test_torch_full_long.py's inputs (long_cmp_inputs:
+     the reference's tests/test_repeat_longread_e2e.py 60 kb genome with
+     a 2.5 kb repeat, 50x fragment, 15x jump and 12x PacBio reads, plus a
+     6x long-jump library of 12000 +- 1200 and an assisting reference of
+     0.3 % SNPs; batch_reads 16384): long_jump_scaffolds, long_read_patch
+     and assisted run, long_read_patch must launch the general kernel on
+     the card, and LONG_ARTIFACTS, CMP_TEXT_FILES and LONG_STAGES' metrics
+     must be byte-identical;
+ 10. `Pipeline(device="cuda").run_full()` over the reference's 500 kb
+     diploid multi-library configuration (diploid_inputs, from
+     tests/test_scale_diploid_multilib.py; ploidy=2) with haplotype 1 a
+     repeat genome of --diploid-genome-size (REPEAT_FAMILIES) and an
+     assisting reference, with DPCapture installed: each stage's wall
+     time and launches, long_read_patch's host anchoring and DP times
+     (StageTimer), and checks that every new stage ran, that the general
+     kernel launched in long_read_patch and the bit-parallel one in
+     long_jump_scaffolds, that the long jumps kept the scaffold N50, that
+     long_read_patch closed a gap and kept > 50 ambiguity records, that
+     the genome covered is >= 95 % of what the truth genome covers as an
+     assembly (evaluate never covers a repeat copy), and that the final
+     FASTA and EFASTA exist; after it, every kept DP call of the new
+     stages is held against the plain version, exactly, and timed in
+     turns (phase_dp_diploid).
 
-Any failed check raises, so the exit code is not 0. The line before the
-last is the kernel record {"kernels": [...]}, whose `launches` are each
-kernel's launches in the two pipeline phases (7 and 8), each counted from
-0 just before its phase, and whose `bound_ms` is the least time of the
+Each phase prints its seconds. Any failed check raises, so the exit code
+is not 0. The line before the last is the kernel record {"kernels":
+[...]}, whose `launches` are each kernel's launches in the pipeline
+phases 7, 8 and 10, each counted from 0 just before its phase, and whose
+`bound_ms` is the least time of the
 timed call: its bytes (for the DP kernels, those its data needs:
 dp_terms) over 3.35 TB/s against its integer operations (BP_OPS_PER_ROW
 and GENERAL_OPS_PER_SLOT for the DP kernels) over the card's int32 rate,
 and for the general kernel also its chain (general_bound); `bound_by`
 names the larger. The bit-parallel kernel's ms, plain_ms and bound_ms
-are those of phase 8's align_frags batch (align_jumps_* and set_a_* keys
-add its align_jumps batch and set (a) of phase 5); the general kernel's
-are phase 6's set (1, band 96), with b8_*, b1_band16_* and bench_shape_*
-keys for sets 5, 6 and 3 and run_full_* lists for phase 8's batches. The
+are those of phase 8's align_frags batch (align_jumps_*, set_a_* and
+consensus_* keys add its align_jumps batch and sets (a) and (e) of phase
+5, long_jump_* and long_read_* phase 10's largest batches of those
+stages); the general kernel's are phase 6's set (1, band 96), with b8_*,
+b1_band16_*, bench_shape_* and medoid_* keys for sets 5, 6, 3 and 9,
+run_full_* lists for phase 8's batches, and long_read_* and assisted_*
+lists for phase 10's timed batches of long_read_patch and assisted. The
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -535,6 +569,66 @@ def dp_problems(rng, B: int, Lq: int, Lt: int, band: int,
     return q, q_len, t, t_len, offset
 
 
+def consensus_problems(rng, B: int = 256, n_real: int = 37, L: int = 32):
+    """Bit-parallel DP inputs shaped like long/consensus.refine_consensus's
+    batches: n_real problems of a read's window of the consensus (q_len
+    20-30, 4 % substitutions) against a candidate variant of that window
+    (the window itself, a 1-2 base deletion or a 1 base insertion), offset
+    0, in a batch padded to B rows of q_len = t_len = 0 and code 4, as
+    refine_consensus pads it."""
+    q = np.full((B, L), 4, np.uint8)
+    t = np.full((B, L), 4, np.uint8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    for i in range(n_real):
+        a = int(rng.integers(20, 31))
+        win = rng.integers(0, 4, a).astype(np.uint8)
+        read = win.copy()
+        sub = rng.random(a) < 0.04
+        read[sub] = (read[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        x = int(rng.integers(1, a - 3))
+        var = [win, np.delete(win, x), np.delete(win, [x, x + 1]),
+               np.insert(win, x, np.uint8(rng.integers(0, 4)))][i % 4]
+        q[i, :a], t[i, :len(var)] = read, var
+        ql[i], tl[i] = a, len(var)
+    return q, ql, t, tl, np.zeros(B, np.int32)
+
+
+def medoid_problems(rng, B: int, L: int, n_real: int):
+    """General-DP inputs shaped like asm/longread.consensus_patch's medoid
+    batch: n = sqrt(n_real) noisy copies of one gap sequence (12 % error,
+    half insertions, 30 % deletions, 20 % substitutions, as
+    eval/sim.simulate_long_reads makes them) cut to lengths ragged within
+    +- 12 % of L / 1.12, all n x n pairs (q = copy i, t = copy j, offset
+    0), then rows of q_len = t_len = 0 and code 4 up to B. Pairs whose
+    lengths differ by more than the band have no in-band path."""
+    n = int(round(np.sqrt(n_real)))
+    m = int(L / 1.12)
+    truth = rng.integers(0, 4, m).astype(np.uint8)
+    segs = []
+    for _ in range(n):
+        r = rng.random(m)
+        keep = r >= 0.036                              # deletions
+        s = truth[keep].copy()
+        sub = rng.random(len(s)) < 0.024
+        s[sub] = (s[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        ins = np.flatnonzero(rng.random(len(s)) < 0.06)
+        s = np.insert(s, ins, rng.integers(0, 4, len(ins)).astype(np.uint8))
+        want = int(rng.integers(int(0.88 * m), min(int(1.12 * m), L) + 1))
+        if len(s) < want:
+            s = np.concatenate([s, rng.integers(0, 4, want - len(s))])
+        segs.append(s[:want].astype(np.uint8))
+    q = np.full((B, L), 4, np.uint8)
+    t = np.full((B, L), 4, np.uint8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    for k in range(n * n):
+        a, b = segs[k // n], segs[k % n]
+        q[k, :len(a)], t[k, :len(b)] = a, b
+        ql[k], tl[k] = len(a), len(b)
+    return q, ql, t, tl, np.zeros(B, np.int32)
+
+
 # Integer operations a DP row needs, counted as Hopper instructions (the
 # int32 rate is one of instructions; LOP3 takes any logic function of
 # three words). The bit-parallel row: the Myers/Hyyro recurrence of
@@ -573,12 +667,14 @@ def phase_banded(seed: int, int_rate: float):
             ("b: band 1", 16_384, 150, 160, 1, False),
             ("b: band 15", 16_384, 260, 290, 15, False),
             ("c: bench.py DP shape", 16_384, 100, 140, 15, False),
-            ("d: N-bearing, rescue shape", 65_536, 260, 276, 8, True)]
+            ("d: N-bearing, rescue shape", 65_536, 260, 276, 8, True),
+            ("e: consensus-shaped, 37 real rows", 256, 32, 32, 6, False)]
     max_err = 0
     times = {}
     for label, B, Lq, Lt, band, with_n in sets:
-        q, ql, t, tl, off = (torch.from_numpy(x).to(dev) for x in
-                             dp_problems(rng, B, Lq, Lt, band, with_n))
+        arrays = (consensus_problems(rng, B, 37, Lq) if label[0] == "e"
+                  else dp_problems(rng, B, Lq, Lt, band, with_n))
+        q, ql, t, tl, off = (torch.from_numpy(x).to(dev) for x in arrays)
         q_plain = torch.where(q == 4, 6, q) if with_n else q
         cost, t_end = banded_cuda.banded_align_bp(q, ql, t, tl, off, band)
         torch.cuda.synchronize()
@@ -593,7 +689,7 @@ def phase_banded(seed: int, int_rate: float):
             f"kernel == plain (cost and t_end); {int(found.sum())} with an "
             f"in-band path, median cost "
             f"{float(want_c[found].float().median()):.0f}")
-        if label[0] in "ac":
+        if label[0] in "ace":
             def plain():
                 return banded.banded_align(q, ql, t, tl, off, band=band)
 
@@ -609,8 +705,13 @@ def phase_banded(seed: int, int_rate: float):
                 f"{TIMING_REPS}), kernel {turns[1]:.4f} / {turns[3]:.4f} ms "
                 f"(device_ms); bound {bound[0]:.4f} ms by {bound[1]}")
     a, bound = times["a"]
+    e, e_bound = times["e"]
     return {"max_abs_err": max_err, "set_a_ms": min(a[1], a[3]),
-            "set_a_plain_ms": min(a[0], a[2]), "set_a_bound_ms": bound[0]}
+            "set_a_plain_ms": min(a[0], a[2]), "set_a_bound_ms": bound[0],
+            "consensus_ms": min(e[1], e[3]),
+            "consensus_plain_ms": min(e[0], e[2]),
+            "consensus_bound_ms": e_bound[0],
+            "consensus_bound_by": e_bound[1]}
 
 
 def patch_problems(rng, B: int, Lq: int, Lt: int, band: int):
@@ -686,7 +787,10 @@ GENERAL_SETS = (
     + [("8: edges, band 96, t_len < K, q_len = Lq", "edge", 4096, 64, 160,
         96, 1, 1, False),
        ("8: edges, band 1, t_len < K, q_len = Lq", "edge", 4096, 64, 160,
-        1, 2, 3, False)])
+        1, 2, 3, False)]
+    + [(f"9: medoid, {n} real rows, band {b}", "medoid", 128, L, L, b, 1,
+        1, True) for n, L, b in ((121, 3072, 192), (121, 3072, 96),
+                                 (16, 12_000, 192))])
 
 
 def phase_banded_general(seed: int, int_rate: float, chain: dict):
@@ -707,6 +811,8 @@ def phase_banded_general(seed: int, int_rate: float, chain: dict):
             arrays = patch_problems(rng, B, Lq, Lt, band)
         elif kind == "edge":
             arrays = edge_problems(rng, B, Lq, Lt, band)
+        elif kind == "medoid":
+            arrays = medoid_problems(rng, B, Lq, int(label.split()[2]))
         else:
             q, ql, t, tl, off = dp_problems(rng, B, Lq, Lt, band, kind == "n")
             if B > 1:
@@ -736,9 +842,18 @@ def phase_banded_general(seed: int, int_rate: float, chain: dict):
             f"costs ({sc},{gc}): kernel == plain (cost and t_end); "
             f"{int(found.sum())} with an in-band path, "
             f"{int((ql == 0).sum())} with q_len 0")
+        if kind == "medoid":
+            real = ql > 0
+            check(bool((~found & real).any()) and bool((found & real).any()),
+                  f"{label}: want both feasible and infeasible pairs")
+            check(bool((want_e[~found] == -1).all()),
+                  f"{label}: an infeasible pair's t_end is not -1")
         if timed:
-            turns = [median_ms(plain), device_ms(kernel), median_ms(plain),
-                     device_ms(kernel)]
+            # the plain version loops over Lq rows in Python: few reps at
+            # the medoid's thousands of rows
+            reps = 2 if kind == "medoid" else TIMING_REPS
+            turns = [median_ms(plain, reps), device_ms(kernel),
+                     median_ms(plain, reps), device_ms(kernel)]
             bound, by, terms = general_bound(q, ql, t, off, band, int_rate,
                                              chain)
             kern = min(turns[1], turns[3])
@@ -746,7 +861,7 @@ def phase_banded_general(seed: int, int_rate: float, chain: dict):
                             "bound_ms": bound, "bound_by": by}
             say(f"[general] {label}: in turns plain/kernel/plain/kernel: "
                 f"plain {turns[0]:.3f} / {turns[2]:.3f} ms (median of "
-                f"{TIMING_REPS}), kernel {turns[1]:.5f} / {turns[3]:.5f} ms "
+                f"{reps}), kernel {turns[1]:.5f} / {turns[3]:.5f} ms "
                 f"(device_ms); bound {bound:.5f} ms by {by} "
                 f"({100 * bound / kern:.1f} % of it; terms ms: "
                 f"{show_terms(terms)})")
@@ -755,7 +870,15 @@ def phase_banded_general(seed: int, int_rate: float, chain: dict):
           for b in (192, 96, 48)]
     b1 = times["6: assisted B = 1, band 16"]
     bench = times["3: bench.py shape"]
+    medoid = [v for k, v in times.items() if k.startswith("9:")]
     return {"max_abs_err": max_err, **big, "library_ms": None,
+            "medoid_shapes": ["128 x 3072 x 3072 band 192",
+                              "128 x 3072 x 3072 band 96",
+                              "128 x 12000 x 12000 band 192"],
+            "medoid_ms": [x["ms"] for x in medoid],
+            "medoid_plain_ms": [x["plain_ms"] for x in medoid],
+            "medoid_bound_ms": [x["bound_ms"] for x in medoid],
+            "medoid_bound_by": [x["bound_by"] for x in medoid],
             "b8_ms": [x["ms"] for x in b8],
             "b8_bound_ms": [x["bound_ms"] for x in b8],
             "b8_bound_by": [x["bound_by"] for x in b8],
@@ -968,18 +1091,24 @@ class DPCapture:
     attributes that ops/banded.banded_align_auto calls): counts each
     kernel's calls by (stage, B x Lq x Lt, band), with q_len min / mean /
     max, and keeps a device copy of the inputs and outputs of the first
-    KEEP calls of each. Stats and copies are taken on the stream, so the
-    run never waits for them."""
+    KEEP calls of each (under a cap a stage, the largest by B x Lq x Lt).
+    Stats and copies are taken on the stream, so the run never waits for
+    them."""
 
     KEEP = 2
     KERNELS = (("banded_cuda", "banded_align_bp", "banded_bp"),
                ("banded_general_cuda", "banded_align_general",
                 "banded_general"))
 
-    def __init__(self):
+    def __init__(self, keep_per_stage: int = None):
+        """keep_per_stage: at most this many kept calls of one kernel in
+        one stage (None: no cap), for stages whose every call has its own
+        shape; past the cap a larger call takes the place of the
+        smallest kept one."""
         import threading
 
         self._lock = threading.Lock()
+        self.keep_per_stage = keep_per_stage
         self.calls = {}   # (kernel, stage, B, Lq, Lt, band) -> [stats]
         self.kept = {}    # the same key -> [(inputs, kwargs, outputs)]
         self._saved = []
@@ -1020,14 +1149,112 @@ class DPCapture:
             out = fn(*args, **kwargs)
             with self._lock:
                 self.calls.setdefault(key, []).append(stats)
-                kept = self.kept.setdefault(key, [])
-                if len(kept) < self.KEEP:
-                    kept.append((tuple(a[k].clone() for k in (
+                if len(self.kept.get(key, [])) >= self.KEEP:
+                    return out
+                in_stage = [k for k in self.kept if k[:2] == key[:2]
+                            for _ in self.kept[k]]
+                if (self.keep_per_stage is not None
+                        and len(in_stage) >= self.keep_per_stage):
+                    smallest = min(in_stage, key=_size)
+                    if _size(smallest) >= _size(key):
+                        return out
+                    self.kept[smallest].pop()
+                    if not self.kept[smallest]:
+                        del self.kept[smallest]
+                self.kept.setdefault(key, []).append((tuple(
+                    a[k].clone() for k in (
                         "q", "q_len", "t", "t_len", "offset")), kw,
-                        tuple(x.clone() for x in out)))
+                    tuple(x.clone() for x in out)))
             return out
 
         return wrapped
+
+
+def _size(key) -> int:
+    """B x Lq x Lt of a DPCapture key."""
+    return key[2] * key[3] * key[4]
+
+
+def _dp_fns():
+    from allpathslg_tpu_torch.ops.cuda import banded_cuda
+    from allpathslg_tpu_torch.ops.cuda import banded_general_cuda as bg
+
+    return {"banded_bp": (banded_cuda.banded_align_bp,
+                          banded_cuda.banded_align_bp_plain),
+            "banded_general": (bg.banded_align_general,
+                               bg.banded_general_plain)}
+
+
+def dp_calls_held(capture: DPCapture, tag: str, stages=None) -> dict:
+    """Prints the count and q_len of each captured (kernel, stage, shape,
+    band) and holds every kept call of `stages` (all when None) against
+    the plain version, exactly. Returns the largest error by kernel."""
+    fns = _dp_fns()
+    for key in sorted(capture.calls, key=str):
+        kernel, stage, B, Lq, Lt, band = key
+        st = torch.stack(capture.calls[key]).cpu()
+        n = st.shape[0]
+        say(f"[{tag}] {kernel} in {stage}: {n} calls at {B} x {Lq} x {Lt}, "
+            f"band {band}; q_len min {int(st[:, 0].min())} / mean "
+            f"{float(st[:, 1].sum()) / (n * B):.1f} / max "
+            f"{int(st[:, 2].max())}")
+    max_err = {"banded_bp": 0, "banded_general": 0}
+    for key, kept in sorted(capture.kept.items(), key=lambda kv: str(kv[0])):
+        kernel = key[0]
+        if stages is not None and key[1] not in stages:
+            continue
+        for arrays, kw, out in kept:
+            want = fns[kernel][1](*arrays, **kw)
+            err = max(int((out[0] - want[0]).abs().max()),
+                      int((out[1] - want[1]).abs().max()))
+            check(err == 0, f"{kernel} != plain version on a {key[1]} call "
+                  f"of run_full ({key[2]} x {key[3]} x {key[4]}, band "
+                  f"{key[5]})")
+            max_err[kernel] = max(max_err[kernel], err)
+        say(f"[{tag}] {kernel} in {key[1]}, {key[2]} x {key[3]} x {key[4]}, "
+            f"band {key[5]}: {len(kept)} kept calls == plain (cost and "
+            f"t_end)")
+    return max_err
+
+
+def dp_timed(capture: DPCapture, key, int_rate: float, chain: dict,
+             tag: str, plain_reps: int = TIMING_REPS) -> dict:
+    """Kernel (device_ms) and plain version (median_ms of plain_reps) in
+    turns on the first kept call of `key`, with its bound (the general
+    kernel's three terms, general_bound)."""
+    kernel = key[0]
+    arrays, kw, _ = capture.kept[key][0]
+    kern, plain = _dp_fns()[kernel]
+    turns = [median_ms(lambda: plain(*arrays, **kw), plain_reps),
+             device_ms(lambda: kern(*arrays, **kw)),
+             median_ms(lambda: plain(*arrays, **kw), plain_reps),
+             device_ms(lambda: kern(*arrays, **kw))]
+    q, ql, t = arrays[:3]
+    if kernel == "banded_bp":
+        bound = dp_bound(q, ql, t, arrays[4], key[5], BP_OPS_PER_ROW,
+                         int_rate)
+        terms = ""
+    else:
+        *bound, terms = general_bound(q, ql, t, arrays[4], key[5],
+                                      int_rate, chain)
+        terms = f"; terms ms: {show_terms(terms)}"
+    idle = (f", idle lane-rows "
+            f"{100 * lane_idle_share(ql.cpu().numpy(), q.shape[1]):.1f} %"
+            if kernel == "banded_bp" else "")
+    say(f"[{tag}] {kernel} on a batch of run_full's {key[1]}, {key[2]} x "
+        f"{key[3]} x {key[4]}, band {key[5]} (q_len mean "
+        f"{float(ql.float().mean()):.1f}{idle}): in turns "
+        f"plain/kernel/plain/kernel: "
+        f"plain {turns[0]:.3f} / {turns[2]:.3f} ms (median of "
+        f"{plain_reps}), kernel {turns[1]:.5f} / {turns[3]:.5f} ms "
+        f"(device_ms); "
+        f"bound {bound[0]:.5f} ms by {bound[1]} "
+        f"({100 * bound[0] / min(turns[1], turns[3]):.1f} % of it"
+        f"{terms})")
+    return {"shape": f"{key[2]} x {key[3]} x {key[4]} band {key[5]}",
+            "ms": min(turns[1], turns[3]),
+            "plain_ms": min(turns[0], turns[2]),
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def phase_dp_batches(capture: DPCapture, int_rate: float,
@@ -1039,82 +1266,22 @@ def phase_dp_batches(capture: DPCapture, int_rate: float,
     kernel and on every kept batch of the general one (with its three
     bound terms, general_bound). Returns (bit-parallel record, general
     record)."""
-    from allpathslg_tpu_torch.ops.cuda import banded_cuda
-    from allpathslg_tpu_torch.ops.cuda import banded_general_cuda as bg
-
-    fns = {"banded_bp": (banded_cuda.banded_align_bp,
-                         banded_cuda.banded_align_bp_plain),
-           "banded_general": (bg.banded_align_general,
-                              bg.banded_general_plain)}
-    for key in sorted(capture.calls, key=str):
-        kernel, stage, B, Lq, Lt, band = key
-        st = torch.stack(capture.calls[key]).cpu()
-        n = st.shape[0]
-        say(f"[dp] {kernel} in {stage}: {n} calls at {B} x {Lq} x {Lt}, "
-            f"band {band}; q_len min {int(st[:, 0].min())} / mean "
-            f"{float(st[:, 1].sum()) / (n * B):.1f} / max "
-            f"{int(st[:, 2].max())}")
-    max_err = {"banded_bp": 0, "banded_general": 0}
-    for key, kept in sorted(capture.kept.items(), key=lambda kv: str(kv[0])):
-        kernel = key[0]
-        for arrays, kw, out in kept:
-            want = fns[kernel][1](*arrays, **kw)
-            err = max(int((out[0] - want[0]).abs().max()),
-                      int((out[1] - want[1]).abs().max()))
-            check(err == 0, f"{kernel} != plain version on a {key[1]} call "
-                  f"of run_full ({key[2]} x {key[3]} x {key[4]}, band "
-                  f"{key[5]})")
-            max_err[kernel] = max(max_err[kernel], err)
-        say(f"[dp] {kernel} in {key[1]}, {key[2]} x {key[3]} x {key[4]}, "
-            f"band {key[5]}: {len(kept)} kept calls == plain (cost and "
-            f"t_end)")
-
-    def timed(key):
-        kernel = key[0]
-        arrays, kw, _ = capture.kept[key][0]
-        kern, plain = fns[kernel]
-        turns = [median_ms(lambda: plain(*arrays, **kw)),
-                 device_ms(lambda: kern(*arrays, **kw)),
-                 median_ms(lambda: plain(*arrays, **kw)),
-                 device_ms(lambda: kern(*arrays, **kw))]
-        q, ql, t = arrays[:3]
-        if kernel == "banded_bp":
-            bound = dp_bound(q, ql, t, arrays[4], key[5], BP_OPS_PER_ROW,
-                             int_rate)
-            terms = ""
-        else:
-            *bound, terms = general_bound(q, ql, t, arrays[4], key[5],
-                                          int_rate, chain)
-            terms = f"; terms ms: {show_terms(terms)}"
-        idle = (f", idle lane-rows "
-                f"{100 * lane_idle_share(ql.cpu().numpy(), q.shape[1]):.1f} %"
-                if kernel == "banded_bp" else "")
-        say(f"[dp] {kernel} on a batch of run_full's {key[1]}, {key[2]} x "
-            f"{key[3]} x {key[4]}, band {key[5]} (q_len mean "
-            f"{float(ql.float().mean()):.1f}{idle}): in turns "
-            f"plain/kernel/plain/kernel: "
-            f"plain {turns[0]:.3f} / {turns[2]:.3f} ms (median of "
-            f"{TIMING_REPS}), kernel {turns[1]:.5f} / {turns[3]:.5f} ms "
-            f"(device_ms); "
-            f"bound {bound[0]:.5f} ms by {bound[1]} "
-            f"({100 * bound[0] / min(turns[1], turns[3]):.1f} % of it"
-            f"{terms})")
-        return {"ms": min(turns[1], turns[3]),
-                "plain_ms": min(turns[0], turns[2]),
-                "bound_ms": bound[0], "bound_by": bound[1]}
-
+    max_err = dp_calls_held(capture, "dp")
     bp = {}
     for stage in ("align_frags", "align_jumps"):
         keys = [k for k in capture.kept if k[:2] == ("banded_bp", stage)]
         check(bool(keys), f"run_full made no bit-parallel call in {stage}")
-        bp[stage] = timed(max(keys, key=lambda k: k[2] * k[3]))
-    general = [timed(k) for k in sorted(capture.kept, key=str)
+        bp[stage] = dp_timed(capture, max(keys, key=lambda k: k[2] * k[3]),
+                             int_rate, chain, "dp")
+    general = [dp_timed(capture, k, int_rate, chain, "dp")
+               for k in sorted(capture.kept, key=str)
                if k[0] == "banded_general"]
     bp_record = {"max_abs_err": max_err["banded_bp"], **bp["align_frags"],
                  "library_ms": None,
                  "align_jumps_ms": bp["align_jumps"]["ms"],
                  "align_jumps_plain_ms": bp["align_jumps"]["plain_ms"],
                  "align_jumps_bound_ms": bp["align_jumps"]["bound_ms"]}
+    bp_record.pop("shape")
     general_record = {"max_abs_err": max_err["banded_general"],
                       "run_full_ms": [g["ms"] for g in general],
                       "run_full_plain_ms": [g["plain_ms"] for g in general],
@@ -1216,8 +1383,8 @@ CMP_TEXT_FILES = ("assembly.superb", "assembly.agp", "final.assembly.fasta",
                   "assembly.report")
 
 
-def cmp_inputs(rd):
-    """Save the 40 kb repeat genome's inputs in run dir `rd` (the port's
+def cmp_inputs() -> dict:
+    """The 40 kb repeat genome's inputs for save_inputs (the port's
     eval/sim with tests/test_torch_full.py's seeds)."""
     from allpathslg_tpu_torch.eval import sim
 
@@ -1229,23 +1396,162 @@ def cmp_inputs(rd):
     jb, jp, _ = sim.simulate_paired_reads(
         g, coverage=15, error_rate=0.005, insert_mean=4000, insert_sd=350,
         outward=True, seed=2)
-    rd.save_arrays("frag_reads_orig", codes=np.asarray(fb.codes),
-                   lengths=np.asarray(fb.lengths), quals=np.asarray(fb.quals),
-                   pairs=np.asarray(fp.pairs))
-    rd.save_arrays("jump_reads_orig", codes=np.asarray(jb.codes),
-                   lengths=np.asarray(jb.lengths), quals=np.asarray(jb.quals),
-                   pairs=np.asarray(jp.pairs),
-                   lib_sep=np.array([4000], np.int32),
-                   lib_sd=np.array([350], np.int32))
-    rd.save_arrays("genome_truth", genome=np.asarray(g))
+    return {
+        "frag_reads_orig": dict(codes=fb.codes, lengths=fb.lengths,
+                                quals=fb.quals, pairs=fp.pairs),
+        "jump_reads_orig": dict(codes=jb.codes, lengths=jb.lengths,
+                                quals=jb.quals, pairs=jp.pairs,
+                                lib_sep=np.array([4000], np.int32),
+                                lib_sd=np.array([350], np.int32)),
+        "genome_truth": dict(genome=g),
+    }
 
 
-def phase_full_compare():
+def save_inputs(rd, inputs: dict):
+    """Save {artifact: {key: array}} in run dir `rd`."""
+    for art, arrays in inputs.items():
+        rd.save_arrays(art, **{k: np.asarray(v) for k, v in arrays.items()})
+
+
+def jump_libs(specs) -> dict:
+    """A jump artifact's arrays (tests/test_scale_diploid_multilib.py's
+    _jump_libs): specs [(haplotype, insert, sd, coverage, seed)], outward
+    pairs of 100 bp at 0.4 % error, one library each."""
+    from allpathslg_tpu_torch.eval import sim
+    from allpathslg_tpu_torch.pipeline.run import jump_lib_arrays
+
+    parts = []
+    for hp, ins, sd, cov, seed in specs:
+        jb, jp, _ = sim.simulate_paired_reads(
+            hp, coverage=cov, error_rate=0.004, insert_mean=ins,
+            insert_sd=sd, outward=True, seed=seed)
+        parts.append((ins, sd, jb, jp))
+    return jump_lib_arrays(parts)
+
+
+def mixed_frags(haps, coverage_each: float, seeds) -> dict:
+    """Fragment reads from each haplotype at 0.4 % error, pooled
+    (tests/test_scale_diploid_multilib.py's _mix_frag)."""
+    from allpathslg_tpu_torch.eval import sim
+
+    parts, pair_parts, at = [], [], 0
+    for hp, sd in zip(haps, seeds):
+        b, p, _ = sim.simulate_paired_reads(hp, coverage=coverage_each,
+                                            error_rate=0.004, seed=sd)
+        parts.append((np.asarray(b.codes), np.asarray(b.lengths),
+                      np.asarray(b.quals)))
+        pair_parts.append(np.asarray(p.pairs) + at)
+        at += b.n_reads
+    L = max(c.shape[1] for c, _, _ in parts)
+    codes = np.full((at, L), 4, np.uint8)
+    quals = np.zeros((at, L), np.uint8)
+    lengths = np.zeros(at, np.int32)
+    row = 0
+    for c, ln, q in parts:
+        codes[row:row + len(ln), :c.shape[1]] = c
+        quals[row:row + len(ln), :q.shape[1]] = q
+        lengths[row:row + len(ln)] = ln
+        row += len(ln)
+    return dict(codes=codes, lengths=lengths, quals=quals,
+                pairs=np.concatenate(pair_parts))
+
+
+def long_reads(g, coverage: float, seed: int, **kw) -> dict:
+    """long_reads_orig's arrays: simulated PacBio reads, flat + offsets."""
+    from allpathslg_tpu_torch.eval import sim
+
+    lr, _, _ = sim.simulate_long_reads(g, coverage=coverage, seed=seed, **kw)
+    offs = np.zeros(len(lr) + 1, np.int64)
+    np.cumsum([len(r) for r in lr], out=offs[1:])
+    return dict(bases=np.concatenate(lr), offsets=offs)
+
+
+def write_assist_ref(path, g):
+    """An assisting reference: a related strain of `g`, 0.3 % SNPs (the
+    relative of tests/test_assisted.py), as FASTA at `path`."""
+    from allpathslg_tpu_torch.eval import sim
+    from allpathslg_tpu_torch.io import fasta
+
+    fasta.write_fasta(str(path), [("relative",
+                                   sim.mutate_genome(g, 0.003, seed=12))])
+
+
+# Phase 9b's inputs, as tests/test_torch_full_long.py makes them: the
+# reference's tests/test_repeat_longread_e2e.py (a 60 kb genome with a
+# 2.5 kb exact repeat at 10,000 and 40,000; 50x fragment reads at 0.4 %
+# error; 15x jump reads of 4000 +- 350; 12x PacBio of mean length 8000),
+# a 6x long-jump library of 12000 +- 1200 and an assisting reference
+LONG_GENOME, LONG_REPEAT, LONG_LOCI = 60_000, 2_500, (10_000, 40_000)
+LONG_ARTIFACTS = CMP_ARTIFACTS + ("long_jump_reads_ec",
+                                  "long_jump_alignlets")
+LONG_STAGES = ("validate_inputs", "remove_dodgy", "precorrect",
+               "find_errors", "clean_reads", "fill_fragments", "unipaths",
+               "jump_ec", "align_jumps", "make_scaffolds",
+               "long_jump_scaffolds", "align_frags", "patch_gaps",
+               "long_read_patch", "assisted", "polish", "clean_final",
+               "finalize", "submission_prep", "evaluate", "report")
+
+
+def repeat_60kb():
+    from allpathslg_tpu_torch.eval import sim
+
+    g = sim.random_genome(LONG_GENOME, seed=71)
+    a, b = LONG_LOCI
+    g[b:b + LONG_REPEAT] = g[a:a + LONG_REPEAT]
+    return g
+
+
+def long_cmp_inputs() -> tuple:
+    """(inputs for save_inputs, genome) of phase 9b."""
+    from allpathslg_tpu_torch.eval import sim
+
+    g = repeat_60kb()
+    fb, fp, _ = sim.simulate_paired_reads(g, coverage=50, error_rate=0.004,
+                                          seed=72)
+    jb, jp, _ = sim.simulate_paired_reads(
+        g, coverage=15, error_rate=0.004, insert_mean=4000, insert_sd=350,
+        outward=True, seed=73)
+    return {
+        "frag_reads_orig": dict(codes=fb.codes, lengths=fb.lengths,
+                                quals=fb.quals, pairs=fp.pairs),
+        "jump_reads_orig": dict(codes=jb.codes, lengths=jb.lengths,
+                                quals=jb.quals, pairs=jp.pairs,
+                                lib_sep=np.array([4000], np.int32),
+                                lib_sd=np.array([350], np.int32)),
+        "long_jump_reads_orig": jump_libs([(g, 12000, 1200, 6.0, 75)]),
+        "long_reads_orig": long_reads(g, 12, 74, mean_len=8000),
+        "genome_truth": dict(genome=g),
+    }, g
+
+
+def diploid_inputs(hap1) -> dict:
+    """Phase 10's inputs for haplotype 1 `hap1` (the reference's
+    tests/test_scale_diploid_multilib.py): hap2 with 0.1 % SNPs; 30x
+    fragment reads of each; jump libraries 3000 +- 300 at 12x from hap1
+    and 6000 +- 600 at 10x from hap2; a long-jump library 12000 +- 1200 at
+    6x and 5x PacBio, from hap1."""
+    from allpathslg_tpu_torch.eval import sim
+
+    hap2 = sim.mutate_genome(hap1, snp_rate=0.001, seed=22)
+    return {
+        "frag_reads_orig": mixed_frags((hap1, hap2), 30.0, (23, 24)),
+        "genome_truth": dict(genome=hap1),
+        "jump_reads_orig": jump_libs([(hap1, 3000, 300, 12.0, 25),
+                                      (hap2, 6000, 600, 10.0, 26)]),
+        "long_jump_reads_orig": jump_libs([(hap1, 12000, 1200, 6.0, 27)]),
+        "long_reads_orig": long_reads(hap1, 5.0, 28),
+    }
+
+
+def phase_full_compare(tag: str, inputs: dict, overrides: dict,
+                       artifacts, stages, must_launch, must_close=()):
     """run_full through the port on the card and on the CPU over the same
-    40 kb inputs; checks that the general kernel launched in patch_gaps on
-    the card and that every artifact of CMP_ARTIFACTS, every file of
-    CMP_TEXT_FILES and every stage metric is the same, byte for byte.
-    Returns the card run's launches by kernel."""
+    inputs (save_inputs) with config `overrides`; checks that on the card
+    each (stage, kernel) of `must_launch` launched and each stage of
+    `must_close` closed at least one gap, and that every
+    artifact of `artifacts`, every file of CMP_TEXT_FILES and every stage
+    metric of `stages` is the same, byte for byte. Returns the card run's
+    launches by stage."""
     from allpathslg_tpu_torch.ops.cuda import launches
     from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
     from allpathslg_tpu_torch.pipeline.rundir import RunDir
@@ -1256,8 +1562,8 @@ def phase_full_compare():
         run_dir = ROOT / "build" / f"chip_smoke_cmp_{device}"
         shutil.rmtree(run_dir, ignore_errors=True)
         rd = RunDir(str(run_dir))
-        cmp_inputs(rd)
-        pipe = Pipeline(rd, AssemblyConfig.from_overrides(batch_reads=4096),
+        save_inputs(rd, inputs)
+        pipe = Pipeline(rd, AssemblyConfig.from_overrides(**overrides),
                         lambda *a: None, device=device)
         launches.reset()
         t0 = time.perf_counter()
@@ -1265,17 +1571,17 @@ def phase_full_compare():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         by_stage = launches.by_stage()
-        say(f"[compare] run_full on {device}: {wall:.1f} s; launches by "
+        say(f"[{tag}] run_full on {device}: {wall:.1f} s; launches by "
             f"stage {by_stage}")
         if device == "cuda":
-            card = {k: launches.count(k) for k in ("radix_sort", "banded_bp",
-                                                    "banded_general")}
-            check(by_stage.get("patch_gaps", {}).get("banded_general", 0) > 0,
-                  "the 40 kb run_full on the card never launched the general "
-                  "kernel in patch_gaps")
+            card = by_stage
+            for stage, kernel in must_launch:
+                check(by_stage.get(stage, {}).get(kernel, 0) > 0,
+                      f"[{tag}] run_full on the card never launched "
+                      f"{kernel} in {stage}")
         rds[device] = rd
     gpu, cpu = rds["cuda"], rds["cpu"]
-    for art in CMP_ARTIFACTS:
+    for art in artifacts:
         a, b = gpu.load_arrays(art), cpu.load_arrays(art)
         check(sorted(a) == sorted(b), f"{art}: keys {sorted(a)} on the card, "
               f"{sorted(b)} on the CPU")
@@ -1287,64 +1593,312 @@ def phase_full_compare():
         a = Path(gpu.file_path(name)).read_bytes()
         b = Path(cpu.file_path(name)).read_bytes()
         check(a and a == b, f"{name} differs between the card and the CPU")
-    for stage in FULL_STAGES:
+    for stage in stages:
         check(gpu.metrics(stage) == cpu.metrics(stage),
               f"{stage} metrics differ: card {gpu.metrics(stage)}, CPU "
               f"{cpu.metrics(stage)}")
-    say(f"[compare] card == CPU: {len(CMP_ARTIFACTS)} artifacts, "
-        f"{len(CMP_TEXT_FILES)} files and {len(FULL_STAGES)} stages' metrics "
-        f"byte-identical; patch_gaps closed "
-        f"{gpu.metrics('patch_gaps')['n_gaps_closed']} gaps; card launches "
-        f"{card}")
+    closed = {s: gpu.metrics(s)["n_gaps_closed"] for s in stages
+              if "n_gaps_closed" in gpu.metrics(s)}
+    for stage in must_close:
+        check(closed.get(stage, 0) >= 1, f"[{tag}] {stage} closed no gap")
+    say(f"[{tag}] card == CPU: {len(artifacts)} artifacts, "
+        f"{len(CMP_TEXT_FILES)} files and {len(stages)} stages' metrics "
+        f"byte-identical; gaps closed {closed}")
     for rd in rds.values():
         shutil.rmtree(rd.path, ignore_errors=True)
     return card
 
 
+def phase_long_compare():
+    """Phase 9b: phase_full_compare on long_cmp_inputs with an assisting
+    reference; long_read_patch must close a gap and launch the general
+    kernel on the card."""
+    inputs, g = long_cmp_inputs()
+    ref = ROOT / "build" / "chip_smoke_relative.fasta"
+    ref.parent.mkdir(parents=True, exist_ok=True)
+    write_assist_ref(ref, g)
+    card = phase_full_compare(
+        "compare-long", inputs, dict(batch_reads=16384, assist_ref=str(ref)),
+        LONG_ARTIFACTS, LONG_STAGES,
+        [("long_read_patch", "banded_general")], ["long_read_patch"])
+    ref.unlink()
+    return card
+
+
+class StageTimer:
+    """Host wall time of calls to module attributes, by the pipeline stage
+    of the calling thread: {(stage, "module.attr"): [seconds, calls]}.
+    The timed functions return host arrays, so their time includes the
+    card's."""
+
+    def __init__(self, targets):
+        import threading
+
+        self.targets = targets          # [(module name, attribute)]
+        self.totals = {}
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def install(self):
+        import importlib
+
+        from allpathslg_tpu_torch.ops.cuda import launches
+
+        for module, attr in self.targets:
+            mod = importlib.import_module(f"allpathslg_tpu_torch.{module}")
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+
+            def wrapped(*a, _fn=fn, _name=f"{module}.{attr}", **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    dt = time.perf_counter() - t0
+                    key = (launches.current_stage(), _name)
+                    with self._lock:
+                        tot = self.totals.setdefault(key, [0.0, 0])
+                        tot[0] += dt
+                        tot[1] += 1
+
+            setattr(mod, attr, wrapped)
+
+    def remove(self):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+        self._saved = []
+
+
+DIPLOID_NEW_STAGES = ("long_jump_scaffolds", "long_read_patch", "assisted")
+# long_read_patch's host anchoring (the read index, the flank votes) and
+# its DP (the medoid and the consensus refinement; banded_align_host is
+# the upload, the kernel and the download)
+LONG_READ_TIMED = (("asm.longread", "LongReadIndex"),
+                   ("asm.longread", "find_gap_segments"),
+                   ("asm.longread", "consensus_patch"),
+                   ("ops.banded", "banded_align_host"))
+# Phase 10 keeps the largest (B x Lq x Lt) this many DP calls of a kernel
+# in a stage: every medoid batch of long_read_patch has its own shape, and
+# the plain version loops over its thousands of rows in Python; the
+# largest DIPLOID_TIMED_GENERAL of them are timed
+DIPLOID_KEEP_PER_STAGE = 8
+DIPLOID_TIMED_GENERAL = 4
+
+
+def phase_diploid(genome_size: int, capture: DPCapture):
+    """Phase 10: run_full on the card over diploid_inputs of a repeat
+    genome (REPEAT_FAMILIES) with an assisting reference, ploidy=2, with
+    `capture` installed; returns each kernel's launches in the run."""
+    from allpathslg_tpu_torch.eval import accuracy as eacc
+    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
+    from allpathslg_tpu_torch.pipeline.rundir import RunDir
+    from allpathslg_tpu_torch.pipeline.stages import Pipeline
+
+    run_dir = ROOT / "build" / "chip_smoke_diploid"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    rd = RunDir(str(run_dir))
+    t0 = time.perf_counter()
+    hap1 = repeat_genome(genome_size, 21)
+    inputs = diploid_inputs(hap1)
+    save_inputs(rd, inputs)
+    ref = run_dir / "relative.fasta"
+    write_assist_ref(ref, hap1)
+    n_long = len(inputs["long_reads_orig"]["offsets"]) - 1
+    say(f"[diploid] inputs: hap1 {genome_size} bp with REPEAT_FAMILIES, "
+        f"hap2 0.1 % SNPs; {len(inputs['frag_reads_orig']['lengths'])} "
+        f"fragment reads (30x each), "
+        f"{len(inputs['jump_reads_orig']['lengths'])} jump reads (3 kb 12x "
+        f"+ 6 kb 10x), {len(inputs['long_jump_reads_orig']['lengths'])} "
+        f"long-jump reads (12 kb 6x), {n_long} PacBio reads (5x), "
+        f"assist_ref 0.3 % SNPs: {time.perf_counter() - t0:.1f} s")
+
+    cfg = AssemblyConfig.from_overrides(ploidy=2, assist_ref=str(ref))
+    pipe = Pipeline(rd, cfg, lambda *a: None, device="cuda")
+    timer = StageTimer(LONG_READ_TIMED)
+    launches.reset()
+    capture.install()
+    timer.install()
+    try:
+        t0 = time.perf_counter()
+        pipe.run_full()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        timer.remove()
+        capture.remove()
+    by_stage = launches.by_stage()
+    total = {k: launches.count(k) for k in ("radix_sort", "banded_bp",
+                                             "banded_general")}
+    stages = rd.manifest["stages"]
+    for stage in LONG_STAGES:
+        rec = stages[stage]
+        shown = {k: v for k, v in rec["metrics"].items() if k != "libraries"}
+        say(f"[diploid] {stage}: {rec['elapsed_s']:.1f} s, launches "
+            f"{by_stage.get(stage, {})}; {shown}")
+    say(f"[diploid] run_full: {wall:.1f} s wall with stage_workers="
+        f"{cfg.stage_workers}; launches {total}")
+    for (stage, name), (secs, n) in sorted(timer.totals.items(), key=str):
+        say(f"[diploid] {stage}: {name} {secs:.2f} s in {n} calls")
+
+    m = {s: rd.metrics(s) for s in LONG_STAGES}
+    for stage in DIPLOID_NEW_STAGES:
+        check("skipped" not in m[stage], f"{stage} skipped: {m[stage]}")
+    check(by_stage.get("long_read_patch", {}).get("banded_general", 0) > 0,
+          "long_read_patch never launched the general kernel")
+    check(by_stage.get("long_jump_scaffolds", {}).get("banded_bp", 0) > 0,
+          "long_jump_scaffolds never launched the bit-parallel kernel")
+    general_stages = sorted(s for s, c in by_stage.items()
+                            if "banded_general" in c)
+    lj, lr = m["long_jump_scaffolds"], m["long_read_patch"]
+    check(lj["scaffold_n50"] >= m["make_scaffolds"]["scaffold_n50"],
+          f"long-jump scaffold N50 {lj['scaffold_n50']} < make_scaffolds' "
+          f"{m['make_scaffolds']['scaffold_n50']}")
+    check(lr["n_gaps_closed"] >= 1, "long_read_patch closed no gap")
+    check(lr["n_ambiguities_kept"] > 50,
+          f"long_read_patch kept {lr['n_ambiguities_kept']} ambiguity "
+          f"records (<= 50)")
+    # evaluate counts a base covered only near a uniquely placed 32-mer,
+    # so the repeat copies are never covered: the bar is 95 % of what the
+    # truth genome itself covers as an assembly
+    ceiling = eacc.evaluate(hap1, np.array([0, len(hap1)], np.int64), hap1,
+                            device="cuda")["genome_covered_frac"]
+    ev = m["evaluate"]
+    check(ev["genome_covered_frac"] >= 0.95 * ceiling,
+          f"genome covered {ev['genome_covered_frac']} < 0.95 x "
+          f"{ceiling} (the truth's own)")
+    for name in ("final.assembly.fasta", "final.assembly.efasta"):
+        path = Path(rd.file_path(name))
+        check(path.exists() and path.stat().st_size > 0, f"{name} missing")
+    say(f"[diploid] general kernel launched in {general_stages}; "
+        f"scaffold N50 {m['make_scaffolds']['scaffold_n50']} -> "
+        f"{lj['scaffold_n50']} (long jumps); gaps closed patch_gaps "
+        f"{m['patch_gaps']['n_gaps_closed']}, long_read_patch "
+        f"{lr['n_gaps_closed']} ({lr['n_ambiguities_kept']} ambiguity "
+        f"records kept), assisted {m['assisted']}; genome covered "
+        f"{ev['genome_covered_frac']} (the truth's own {ceiling}), "
+        f"misassembly breaks {ev['misassembly_breaks']}; finalize "
+        f"n_ambiguities {m['finalize'].get('n_ambiguities')} (assisted "
+        f"saves contigs_final without them, as the reference does); "
+        f"final FASTA and EFASTA written")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return total
+
+
+def phase_dp_diploid(capture: DPCapture, int_rate: float, chain: dict):
+    """Phase 10's DP calls in the new stages: every kept call held against
+    the plain version, exactly; timed in turns: the largest bit-parallel
+    batch of long_jump_scaffolds and of long_read_patch, every general
+    batch of assisted and the DIPLOID_TIMED_GENERAL largest of
+    long_read_patch. Returns (max errors, bit-parallel timings by stage,
+    general timings by stage)."""
+    max_err = dp_calls_held(capture, "dp10", DIPLOID_NEW_STAGES)
+    bp, general = {}, {"long_read_patch": [], "assisted": []}
+    for stage in ("long_jump_scaffolds", "long_read_patch"):
+        keys = [k for k in capture.kept if k[:2] == ("banded_bp", stage)]
+        if keys:
+            bp[stage] = dp_timed(capture, max(keys, key=lambda k: k[2] * k[3]),
+                                 int_rate, chain, "dp10")
+    lr = sorted((k for k in capture.kept
+                 if k[:2] == ("banded_general", "long_read_patch")),
+                key=lambda k: -k[2] * k[3] * k[4])
+    for k in lr[:DIPLOID_TIMED_GENERAL]:
+        general["long_read_patch"].append(
+            dp_timed(capture, k, int_rate, chain, "dp10", plain_reps=1))
+    for k in sorted(capture.kept, key=str):
+        if k[:2] == ("banded_general", "assisted"):
+            general["assisted"].append(dp_timed(capture, k, int_rate, chain,
+                                                "dp10"))
+    return max_err, bp, general
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--genome-size", type=int, default=1_000_000,
-                    help="genome of the contig-slice phase")
+    ap.add_argument("--genome-size", type=int, default=200_000,
+                    help="genome of the contig-slice phase (7)")
     ap.add_argument("--full-genome-size", type=int, default=4_600_000,
-                    help="genome of the run_full phase")
+                    help="genome of the run_full phase (8)")
+    ap.add_argument("--diploid-genome-size", type=int, default=500_000,
+                    help="haplotype of the diploid run_full phase (10)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script only runs "
                          "on a GPU")
     sys.path.insert(0, str(ROOT))
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def done(phase: str):
+        now = time.perf_counter()
+        say(f"[phase] {phase}: {now - t_phase[0]:.1f} s (total "
+            f"{now - t_start:.1f} s)")
+        t_phase[0] = now
+
     name, int_rate = phase_card()
     phase_build()
     chain = chain_terms()
+    done("1-2 card, build, chain")
     codes = flagship_codes(args.seed)
     record = phase_sort(codes, args.seed)
+    done("3 sort")
     phase_spectrum(codes)
+    done("4 spectrum")
     set_a_record = phase_banded(args.seed, int_rate)
+    done("5 bit-parallel DP")
     general_record = phase_banded_general(args.seed, int_rate, chain)
+    done("6 general DP")
     slice_launches = phase_slice(args.genome_size, args.seed)
+    done("7 contig slice")
     capture = DPCapture()
     full_launches = phase_full(args.full_genome_size, args.seed, capture)
     bp_record, general_full = phase_dp_batches(capture, int_rate, chain)
+    done("8 run_full")
+    phase_full_compare("compare", cmp_inputs(), dict(batch_reads=4096),
+                       CMP_ARTIFACTS, FULL_STAGES,
+                       [("patch_gaps", "banded_general")])
+    done("9 card == CPU")
+    phase_long_compare()
+    done("9b card == CPU, long reads")
+    capture10 = DPCapture(keep_per_stage=DIPLOID_KEEP_PER_STAGE)
+    diploid_launches = phase_diploid(args.diploid_genome_size, capture10)
+    err10, bp10, general10 = phase_dp_diploid(capture10, int_rate, chain)
+    done("10 diploid multi-library run_full")
     bp_record["max_abs_err"] = max(bp_record["max_abs_err"],
-                                   set_a_record.pop("max_abs_err"))
+                                   set_a_record.pop("max_abs_err"),
+                                   err10["banded_bp"])
     general_record["max_abs_err"] = max(general_record["max_abs_err"],
-                                        general_full.pop("max_abs_err"))
-    phase_full_compare()
+                                        general_full.pop("max_abs_err"),
+                                        err10["banded_general"])
+    for stage, tag in (("long_jump_scaffolds", "long_jump"),
+                       ("long_read_patch", "long_read")):
+        if stage in bp10:
+            bp_record.update({f"{tag}_{k}": v for k, v in bp10[stage].items()})
+    for stage, tag in (("long_read_patch", "long_read"),
+                       ("assisted", "assisted")):
+        general_record.update({
+            f"{tag}_{k}s" if k == "shape" else f"{tag}_{k}":
+            [g[k] for g in general10[stage]]
+            for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")})
     say(json.dumps({"kernels": [{
         "name": "radix_sort_u64", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/radix_sort.cu",
         "replaces": "allpathslg_tpu/ops/pallas/sort_pallas.py:178",
-        "launches": slice_launches["sort"] + full_launches["radix_sort"],
+        "launches": (slice_launches["sort"] + full_launches["radix_sort"]
+                     + diploid_launches["radix_sort"]),
         **record}, {
         "name": "banded_bp", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/banded_bp.cu",
         "replaces": "allpathslg_tpu/ops/pallas/banded_bp.py:294",
-        "launches": slice_launches["banded"] + full_launches["banded_bp"],
+        "launches": (slice_launches["banded"] + full_launches["banded_bp"]
+                     + diploid_launches["banded_bp"]),
         **bp_record, **set_a_record}, {
         "name": "banded_general", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/banded_general.cu",
         "replaces": "allpathslg_tpu/ops/pallas/banded_pallas.py:127",
-        "launches": full_launches["banded_general"], **general_record,
+        "launches": (full_launches["banded_general"]
+                     + diploid_launches["banded_general"]),
+        **general_record,
         **general_full}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

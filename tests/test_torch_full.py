@@ -172,9 +172,52 @@ def test_prepare_sim_inputs_with_jump_libraries(tmp_path):
         assert all(a[k].tobytes() == b[k].tobytes() for k in a), art
 
 
+def test_prepare_sim_inputs_with_long_jumps_and_pacbio(tmp_path):
+    """The CLI's simulated inputs with a long-jump library and PacBio
+    reads: the reference's artifacts, byte for byte."""
+    from allpathslg_tpu.pipeline.run import prepare_sim_inputs as rprepare
+    from allpathslg_tpu_torch.pipeline.run import prepare_sim_inputs as tprep
+
+    kw = dict(jump_coverage=3.0, pacbio_coverage=4.0,
+              long_jump_libs=[(10000, 1000, 2.0), (8000, 800, 1.0)])
+    rd_r = RRunDir(str(tmp_path / "ref"))
+    rd_t = TRunDir(str(tmp_path / "port"))
+    rprepare(rd_r, 24_000, 5.0, 0.005, 100, 3, _quiet, **kw)
+    tprep(rd_t, 24_000, 5.0, 0.005, 100, 3, _quiet, **kw)
+    for art in ("frag_reads_orig", "jump_reads_orig", "long_jump_reads_orig",
+                "long_reads_orig", "genome_truth"):
+        a, b = rd_r.load_arrays(art), rd_t.load_arrays(art)
+        assert sorted(a) == sorted(b)
+        assert all(a[k].dtype == b[k].dtype and a[k].tobytes() ==
+                   b[k].tobytes() for k in a), art
+
+
+def test_cli_long_jumps_and_pacbio(tmp_path):
+    """`--long-jump-libs 10000:1000:2 --pacbio-coverage 4`: the CLI
+    prepares the long-jump and PacBio artifacts as the reference's
+    prepare_sim_inputs does, then starts run_full (stopped here by the
+    fault-injection hook at its first stage)."""
+    from allpathslg_tpu.pipeline.run import prepare_sim_inputs as rprepare
+    from allpathslg_tpu_torch.pipeline import run
+
+    with pytest.raises(RuntimeError, match="injected fault"):
+        run.main(["--run-dir", str(tmp_path / "port"), "--sim-genome",
+                  "24000", "--coverage", "5", "--device", "cpu",
+                  "--long-jump-libs", "10000:1000:2", "--pacbio-coverage",
+                  "4", "fault_stage=validate_inputs"])
+    rd_r = RRunDir(str(tmp_path / "ref"))
+    rprepare(rd_r, 24_000, 5.0, 0.005, 100, 0, _quiet, pacbio_coverage=4.0,
+             long_jump_libs=[(10000, 1000, 2.0)])
+    rd_t = TRunDir(str(tmp_path / "port"))
+    for art in ("long_jump_reads_orig", "long_reads_orig"):
+        a, b = rd_r.load_arrays(art), rd_t.load_arrays(art)
+        assert sorted(a) == sorted(b)
+        assert all(a[k].tobytes() == b[k].tobytes() for k in a), art
+    assert not rd_t.has("jump_reads_orig")
+
+
 @pytest.mark.parametrize("flags", [
-    ["--frag-fastq", "r1.fastq"], ["--in-libs", "in_libs.csv"],
-    ["--long-jump-libs", "10000:1000:10"], ["--pacbio-coverage", "12"]])
+    ["--frag-fastq", "r1.fastq"], ["--in-libs", "in_libs.csv"]])
 def test_cli_unported_inputs_raise(tmp_path, flags):
     from allpathslg_tpu_torch.pipeline import run
 

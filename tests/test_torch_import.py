@@ -17,9 +17,11 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.align.lookup",
     "allpathslg_tpu_torch.align.packalign",
     "allpathslg_tpu_torch.asm.amb",
+    "allpathslg_tpu_torch.asm.assisted",
     "allpathslg_tpu_torch.asm.clean_assembly",
     "allpathslg_tpu_torch.asm.fill",
     "allpathslg_tpu_torch.asm.localize",
+    "allpathslg_tpu_torch.asm.longread",
     "allpathslg_tpu_torch.asm.patch",
     "allpathslg_tpu_torch.asm.polish",
     "allpathslg_tpu_torch.convert",
@@ -43,6 +45,7 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.kmer.count",
     "allpathslg_tpu_torch.kmer.kmerize",
     "allpathslg_tpu_torch.kmer.spectrum",
+    "allpathslg_tpu_torch.long.consensus",
     "allpathslg_tpu_torch.long.eval_by_reads",
     "allpathslg_tpu_torch.models.flagship",
     "allpathslg_tpu_torch.ops.banded",
@@ -60,6 +63,7 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.pipeline.stages",
     "allpathslg_tpu_torch.scaffold.circular",
     "allpathslg_tpu_torch.scaffold.links",
+    "allpathslg_tpu_torch.scaffold.longjump",
     "allpathslg_tpu_torch.scaffold.scaffolder",
     "allpathslg_tpu_torch.scaffold.superb",
     "allpathslg_tpu_torch.utils.intdist",
@@ -128,6 +132,13 @@ def test_chip_smoke_fails_without_cuda_or_package(tmp_path, alone):
     ("asm.polish", "polish_indels"),
     ("asm.patch", "_DPBatch"),
     ("asm.patch", "patch_scaffold_gaps"),
+    ("asm.assisted", "place_contigs"),
+    ("asm.assisted", "assisted_patch"),
+    ("asm.assisted", "assist_assembly"),
+    ("asm.longread", "consensus_patch"),
+    ("asm.longread", "close_gap_with_long_reads"),
+    ("long.consensus", "score_stack"),
+    ("long.consensus", "refine_consensus"),
     ("ec.jump", "error_correct_jumps"),
     ("eval.accuracy", "_genome_kmer_table"),
     ("eval.accuracy", "evaluate"),

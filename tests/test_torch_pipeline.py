@@ -5,7 +5,7 @@ find_errors -> clean_reads -> fill_fragments -> unipaths -> report ->
 align_frags on the same simulated genome (20 kb x 40x, batch_reads=4096,
 as tests/test_pipeline_mesh.py sizes it); every artifact (arrays, FASTA,
 EFASTA and the report text) and every stage metric must be identical.
-Also: the options and inputs that lead off the ported stages raise
+Also: the options that lead off the ported stages raise
 NotImplementedError, a CUDA pipeline without a card raises, and an
 interrupted find_errors resumes to the same artifacts.
 """
@@ -166,41 +166,6 @@ def test_off_slice_options_raise(tmp_path, override, stage):
     with pytest.raises(NotImplementedError, match="not ported"):
         _, port = _port(tmp_path, **override)
         getattr(port, stage)()
-
-
-def test_jump_library_raises(tmp_path):
-    """A jump library runs through run_full (tests/test_torch_full.py);
-    with PacBio long reads beside it, run_full raises before any stage
-    runs, since long_read_patch is not ported yet."""
-    rd, port = _port(tmp_path)
-    a = rd.load_arrays("frag_reads_orig")
-    rd.save_arrays("jump_reads_orig", **a)
-    rd.save_arrays("long_reads_orig", bases=np.zeros(500, np.uint8),
-                   offsets=np.array([0, 500], np.int64))
-    with pytest.raises(NotImplementedError, match="long_read_patch"):
-        port.run_full()
-    assert not rd.metrics("validate_inputs")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.long_read_patch()
-
-
-@pytest.mark.parametrize("what", ["long_jump", "assist_ref"])
-def test_unported_inputs_raise(tmp_path, what):
-    """Long-jump libraries and an assisting reference need stages not
-    ported yet: run_full and the stage itself raise."""
-    if what == "long_jump":
-        rd, port = _port(tmp_path)
-        rd.save_arrays("long_jump_reads_orig",
-                       **rd.load_arrays("frag_reads_orig"))
-        stage, match = port.long_jump_scaffolds, "long_jump_scaffolds"
-    else:
-        rd, port = _port(tmp_path, assist_ref="related.fasta")
-        stage, match = port.assisted, "assisted"
-    with pytest.raises(NotImplementedError, match=match):
-        port.run_full()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        stage()
-    assert not rd.metrics("validate_inputs")
 
 
 def test_cuda_pipeline_without_card_raises(tmp_path):
