@@ -19,6 +19,8 @@ from allpathslg_tpu_torch.dtypes.devcache import DeviceBatches
 from allpathslg_tpu_torch.graph.pathsdb import KmerPlacement, ReadPaths
 from allpathslg_tpu_torch.graph.unipath import UniGraph, Unipaths
 from allpathslg_tpu_torch.kmer.count import CountedKmers
+from allpathslg_tpu_torch.long.friends import Friends
+from allpathslg_tpu_torch.long.supported import SupportedGraph
 from allpathslg_tpu_torch.ops.join import HashedTable
 
 
@@ -124,3 +126,15 @@ def kmer_placement(K: int, table, uid, upos, urc, *,
     return KmerPlacement(K=int(K), table=words(table, device),
                          uid=np.asarray(uid), upos=np.asarray(upos),
                          urc=np.asarray(urc))
+
+
+def friends(a, b, rc, offset, shared):
+    """A reference long.friends.Friends' arrays -> the port's (host)."""
+    return Friends(*(np.asarray(x) for x in (a, b, rc, offset, shared)))
+
+
+def supported_graph(ups: Unipaths, g: UniGraph, edge_support, node_cov):
+    """A reference long.supported.SupportedGraph -> the port's (host), its
+    unipaths and graph already converted (`unipaths`, `unigraph`)."""
+    return SupportedGraph(ups=ups, g=g, edge_support=np.asarray(edge_support),
+                          node_cov=np.asarray(node_cov))

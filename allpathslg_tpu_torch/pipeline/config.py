@@ -5,9 +5,9 @@ Replaces the reference's two-level flag system (ref: src/system/ParsedArgs.h
 overrides, SURVEY.md §5.6). The whole tree serializes into the run manifest
 for provenance, like the reference echoing its command line into logs.
 A copy of allpathslg_tpu/pipeline/config.py over the port's EC configs:
-`to_json()` is identical. Of its options, n_devices > 1, profile_dir,
-check_mode and evaluation="CHEAT" are not ported yet; the port's Pipeline
-raises NotImplementedError for them (pipeline/stages.py).
+`to_json()` is identical. Of its options, n_devices > 1 is not ported yet;
+the port's Pipeline raises NotImplementedError for it (pipeline/stages.py).
+profile_dir writes torch.profiler traces instead of jax.profiler ones.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ class AssemblyConfig:
                                     # RunAllPathsLG EVALUATION=; CHEAT feeds
                                     # the truth genome into stage INTERNALS
                                     # for debugging diagnostics)
-    profile_dir: str = ""           # stage trace dir ("" = off; not ported)
+    profile_dir: str = ""           # stage trace dir ("" = off)
     fault_stage: str = ""           # raise inside this stage (resume tests)
     min_scaffold_len: int = 0       # submission min length (0 → min_contig)
     assist_ref: str = ""            # related-genome FASTA for assisted

@@ -8,11 +8,16 @@ Usage (simulated input, the built-in test oracle):
       [--long-jump-libs 12000:1200:6] [--pacbio-coverage 8] \\
       [--device cuda] [--k 96] [KEY=VALUE ...]
 
+Real input:
+  python -m allpathslg_tpu_torch.pipeline.run --run-dir /tmp/run2 \\
+      --in-libs in_libs.csv --in-groups in_groups.csv [--ploidy 1] ...
+  python -m allpathslg_tpu_torch.pipeline.run --run-dir /tmp/run3 \\
+      --frag-fastq interleaved.fastq [more.fastq ...] ...
+
 KEY=VALUE pairs override any AssemblyConfig field (ref: RunAllPathsLG's
 ArachneArgs KEY=VALUE forwarding; `assist_ref=related.fasta` adds the
 assisted stage). The run goes through `run_full` on `--device` (default
-cuda). Not ported yet (ROADMAP.md), and raising NotImplementedError: FASTQ
-import (--frag-fastq) and library sheets (--in-libs/--in-groups).
+cuda).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import numpy as np
 from allpathslg_tpu_torch.eval import sim
 from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
 from allpathslg_tpu_torch.pipeline.rundir import RunDir
-from allpathslg_tpu_torch.pipeline.stages import Pipeline, _not_ported
+from allpathslg_tpu_torch.pipeline.stages import Pipeline
 
 
 def _log_factory(rd: RunDir):
@@ -133,6 +138,24 @@ def jump_lib_arrays(parts) -> dict:
                 lib_sd=np.array([p[1] for p in parts], np.int32))
 
 
+def prepare_fastq_inputs(rd: RunDir, fastqs, log):
+    """FASTQ import through the native C++ reader (ref:
+    PrepareAllPathsInputs.pl conversion path): the files' reads in order
+    as one fragment library, paired by the interleaved convention (0, 1),
+    (2, 3), ..."""
+    from allpathslg_tpu_torch.io import native_fastq
+    from allpathslg_tpu_torch.pipeline.prepare import _concat_reads
+
+    codes, quals, lengths = _concat_reads(
+        [native_fastq.read_fastq_arrays(p) for p in fastqs])
+    n = codes.shape[0]
+    pairs = np.stack([np.arange(0, n - 1, 2), np.arange(1, n, 2)],
+                     1).astype(np.int32)
+    rd.save_arrays("frag_reads_orig", codes=codes, lengths=lengths,
+                   quals=quals, pairs=pairs)
+    log(f"[prepare] imported {n} reads from {len(fastqs)} fastq files")
+
+
 def _libspec(spec: str):
     """'ins:sd:cov,ins:sd:cov,...' -> [(ins, sd, cov), ...] or None."""
     return ([tuple(float(x) if i == 2 else int(x)
@@ -152,9 +175,13 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frag-fastq", nargs="*", default=[])
     ap.add_argument("--in-libs", default="",
-                    help="in_libs.csv library sheet (not ported)")
+                    help="in_libs.csv library sheet (ref: "
+                         "PrepareAllPathsInputs.pl)")
     ap.add_argument("--in-groups", default="",
-                    help="in_groups.csv read-group sheet (not ported)")
+                    help="in_groups.csv read-group sheet")
+    ap.add_argument("--ploidy", type=int, default=1,
+                    help="written to the run dir's ploidy file with the "
+                         "sheets (the assembly's ploidy is ploidy=)")
     ap.add_argument("--jump-coverage", type=float, default=0.0)
     ap.add_argument("--jump-insert", type=int, default=3000)
     ap.add_argument("--jump-sd", type=int, default=300)
@@ -169,12 +196,6 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=96)
     ap.add_argument("overrides", nargs="*", help="KEY=VALUE config overrides")
     args = ap.parse_args(argv)
-
-    for flag, given in (("--frag-fastq (FASTQ import)", args.frag_fastq),
-                        ("--in-libs/--in-groups (library sheets)",
-                         args.in_libs or args.in_groups)):
-        if given:
-            raise _not_ported(flag)
 
     over = {}
     for kv in args.overrides:
@@ -191,16 +212,24 @@ def main(argv=None):
     log(f"config: {cfg.to_json()}")
 
     if not rd.has("frag_reads_orig"):
-        if not args.sim_genome:
-            ap.error("need --sim-genome (or an existing run dir)")
-        prepare_sim_inputs(rd, args.sim_genome, args.coverage,
-                           args.error_rate, args.read_len, args.seed, log,
-                           jump_coverage=args.jump_coverage,
-                           jump_insert=args.jump_insert,
-                           jump_sd=args.jump_sd,
-                           pacbio_coverage=args.pacbio_coverage,
-                           jump_libs=_libspec(args.jump_libs),
-                           long_jump_libs=_libspec(args.long_jump_libs))
+        if args.sim_genome:
+            prepare_sim_inputs(rd, args.sim_genome, args.coverage,
+                               args.error_rate, args.read_len, args.seed, log,
+                               jump_coverage=args.jump_coverage,
+                               jump_insert=args.jump_insert,
+                               jump_sd=args.jump_sd,
+                               pacbio_coverage=args.pacbio_coverage,
+                               jump_libs=_libspec(args.jump_libs),
+                               long_jump_libs=_libspec(args.long_jump_libs))
+        elif args.in_libs and args.in_groups:
+            from allpathslg_tpu_torch.pipeline.prepare import prepare_inputs
+            prepare_inputs(rd, args.in_libs, args.in_groups,
+                           ploidy=args.ploidy, log=log)
+        elif args.frag_fastq:
+            prepare_fastq_inputs(rd, args.frag_fastq, log)
+        else:
+            ap.error("need --sim-genome, --in-libs/--in-groups or "
+                     "--frag-fastq (or an existing run dir)")
 
     pipe = Pipeline(rd, cfg, log, device=args.device)
     final = pipe.run_full()

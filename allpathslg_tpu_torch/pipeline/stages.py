@@ -33,8 +33,11 @@ byte for byte, and resumes from the same manifest. The stages run on the
 torch device the Pipeline is given; the read set is uploaded once and
 stays resident on it across the EC stages (dtypes/devcache).
 
-Not ported yet (see ROADMAP.md): the options a multi-device mesh
-(n_devices > 1), profile_dir, check_mode and evaluation="CHEAT" raise
+Diagnostics: check_mode holds validate_inputs' spectrum of the first 512
+reads against the Python oracle (eval/oracle.py); evaluation="CHEAT" adds
+the truth metrics of find_errors and unipaths; profile_dir writes a
+torch.profiler trace of each stage to `{profile_dir}/{stage}/`. Not ported
+yet (see ROADMAP.md): a multi-device mesh (n_devices > 1) raises
 NotImplementedError.
 """
 
@@ -42,6 +45,7 @@ from __future__ import annotations
 
 import copy
 import os
+import threading
 import time
 from typing import Callable, Dict, List, Tuple
 
@@ -66,6 +70,10 @@ from allpathslg_tpu_torch.pipeline.rundir import RunDir
 # the reference's input-validation kmer size: per-library 25-mer spectra
 # (ref: ValidateAllPathsInputs 25-mer kspec) — distinct from the EC K_ec
 K_VALIDATE = 25
+# profile_dir traces one stage at a time: the stage that starts while
+# another is traced raises, as the reference's jax.profiler.trace does when
+# run_full's DAG runs two stages at once (stage_workers > 1)
+_PROFILE_LOCK = threading.Lock()
 
 
 def _dup_pair_mask(codes: np.ndarray, pairs: np.ndarray) -> np.ndarray:
@@ -185,10 +193,6 @@ class Pipeline:
             raise RuntimeError(f"Pipeline(device={device!r}): no CUDA device")
         if cfg.n_devices > 1:
             raise _not_ported("n_devices > 1 (mesh-distributed counting)")
-        if cfg.profile_dir:
-            raise _not_ported("profile_dir (stage tracing)")
-        if cfg.evaluation == "CHEAT":
-            raise _not_ported('evaluation="CHEAT" (truth diagnostics)')
         self.rd = rd
         self.cfg = cfg
         self.log = log
@@ -236,7 +240,10 @@ class Pipeline:
                                self.cfg.stage_timeout_s, self.log)
         try:
             with launches.stage(name):
-                metrics = fn() or {}
+                if self.cfg.profile_dir:
+                    metrics = self._profiled(name, fn)
+                else:
+                    metrics = fn() or {}
         finally:
             watch.stop()
         dt = time.time() - t0
@@ -248,8 +255,6 @@ class Pipeline:
 
     def validate_inputs(self):
         cfg, rd = self.cfg, self.rd
-        if cfg.check_mode:
-            raise _not_ported("check_mode (spectrum oracle check)")
         have_jumps = rd.has("jump_reads_orig")
         ih = rd.hash_of("validate", K_VALIDATE,
                         self._art_hash("frag_reads_orig"),
@@ -287,6 +292,8 @@ class Pipeline:
             libs = {"frag": frag_row}
             if int(a["lengths"].min()) < cfg.K_ec:
                 raise ValueError("reads shorter than K_ec")
+            if cfg.check_mode:
+                self._check_spectrum_oracle(batch, spec, K=K_VALIDATE)
 
             if have_jumps:
                 j = rd.load_arrays("jump_reads_orig", mmap=True)
@@ -463,14 +470,24 @@ class Pipeline:
                     self.log(f"  [find_errors] round {r}: checkpointed")
             np.save(rd.file_path("strong_table.npy"),
                     kcount._words_to_np(tw_save))
-            rd.save_arrays("frag_reads_edit", codes=db.codes_to_host(),
+            out_codes = db.codes_to_host()
+            extra = {}
+            if self._cheat:
+                before = self._cheat_true_kmer_frac(a["codes"], cfg.K_ec)
+                after = self._cheat_true_kmer_frac(out_codes, cfg.K_ec)
+                self.log(f"  [find_errors] CHEAT: true-kmer frac "
+                         f"{before} -> {after}")
+                extra = {"cheat_true_kmer_frac_before": before,
+                         "cheat_true_kmer_frac_after": after}
+            rd.save_arrays("frag_reads_edit", codes=out_codes,
                            lengths=a["lengths"], quals=a["quals"],
                            **({"pairs": a["pairs"]} if "pairs" in a else {}))
             self._register_resident("frag_reads_edit", db,
                                     drop="frag_reads_prec")
             if os.path.exists(ck_file):
                 os.remove(ck_file)
-            return {"n_corrections": total, "n_strong_kmers": int(n_strong)}
+            return {"n_corrections": total, "n_strong_kmers": int(n_strong),
+                    **extra}
 
         return self.run_stage("find_errors", ih,
                               ["frag_reads_edit.npz", "strong_table.npy"], fn)
@@ -672,6 +689,9 @@ class Pipeline:
                            amb_kept_len=np.asarray(amb_klen, np.int32),
                            amb_alt=np.asarray(amb_alt, np.uint8),
                            amb_alt_offsets=np.asarray(amb_aoff, np.int64))
+            if self._cheat:
+                lm = {**lm, **self._cheat_assembly_report(
+                    bases, offsets, "unipaths")}
             recs = [(f"contig_{i}", contigs.seqs[i])
                     for i in range(len(contigs.seqs))]
             fio.write_fasta(rd.file_path("unibases.fasta"), recs)
@@ -1566,6 +1586,100 @@ class Pipeline:
 
     # ---- helpers ----
 
+    def _profiled(self, name: str, fn) -> Dict:
+        """fn() under torch.profiler (CPU activity, and CUDA on the card),
+        its Chrome trace written to `{profile_dir}/{name}/trace.json`
+        (ref: jax.profiler.trace into the same directory)."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        if not _PROFILE_LOCK.acquire(blocking=False):
+            raise RuntimeError(
+                f"profile_dir: stage {name} started while another stage is "
+                f"traced. Profile has already been started. Only one "
+                f"profile may be run at a time (run with stage_workers=1)")
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                metrics = fn() or {}
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        finally:
+            _PROFILE_LOCK.release()
+        out = os.path.join(self.cfg.profile_dir, name)
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        return metrics
+
+    def _check_spectrum_oracle(self, batch, spec, n_sample: int = 512,
+                               K: int = None):
+        """check_mode: the device k-mer spectrum of the first n_sample
+        reads (kmer/count.spectrum_reads on the pipeline's device; on the
+        card, the Hopper sort) against the Python oracle. Raises on a
+        mismatch."""
+        from allpathslg_tpu_torch.eval import oracle
+        cfg = self.cfg
+        K = cfg.K_ec if K is None else K
+        codes = np.asarray(batch.codes)[:n_sample]
+        lens = np.asarray(batch.lengths)[:n_sample]
+        reads = [codes[i, : lens[i]] for i in range(codes.shape[0])]
+        want = oracle.kmer_spectrum(oracle.count_kmers(reads, K),
+                                    cfg.max_freq)
+        got, _ = kcount.spectrum_reads(
+            torch.from_numpy(np.ascontiguousarray(codes)).to(self.device), K,
+            cfg.max_freq)
+        got = got.cpu().numpy()
+        if not (got == want).all():
+            bad = np.nonzero(got != want)[0][:5]
+            raise AssertionError(
+                f"check_mode: device spectrum disagrees with oracle at "
+                f"freqs {bad.tolist()} (device {got[bad].tolist()} vs "
+                f"oracle {want[bad].tolist()})")
+        self.log(f"  [check] spectrum oracle ok on {len(reads)} reads")
+
     def _art_hash(self, name: str) -> str:
         """Cheap artifact fingerprint: file sizes + mtimes."""
         return self.rd.fingerprint(name)
+
+    # ---- CHEAT-mode truth diagnostics (ref: EVALUATION=CHEAT guiding
+    # module internals for debugging) ----
+
+    @property
+    def _cheat(self) -> bool:
+        return (self.cfg.evaluation == "CHEAT"
+                and self.rd.has("genome_truth"))
+
+    def _truth_kmer_set(self, K: int):
+        if getattr(self, "_truth_kset", None) is None \
+                or self._truth_kset[0] != K:
+            from allpathslg_tpu_torch.eval import oracle
+            g = self.rd.load_arrays("genome_truth")["genome"]
+            self._truth_kset = (K, set(oracle.count_kmers([g], K).keys()))
+        return self._truth_kset[1]
+
+    def _cheat_true_kmer_frac(self, codes: np.ndarray, K: int,
+                              n_sample: int = 512) -> float:
+        """Fraction of a read sample's K-mers present in the truth genome
+        (1.0 = error-free reads); the mid-pipeline EC diagnostic."""
+        from allpathslg_tpu_torch.eval import oracle
+        kset = self._truth_kmer_set(K)
+        idx = np.linspace(0, len(codes) - 1, min(n_sample, len(codes)),
+                          dtype=np.int64)
+        reads = [np.asarray(codes[i]) for i in idx]
+        n_in = n_tot = 0
+        for ck in (oracle.count_kmers([r], K) for r in reads):
+            n_tot += sum(ck.values())
+            n_in += sum(v for k, v in ck.items() if k in kset)
+        return round(n_in / max(n_tot, 1), 5)
+
+    def _cheat_assembly_report(self, bases, offsets, tag: str) -> Dict:
+        """Mid-pipeline truth accuracy of an intermediate contig set."""
+        from allpathslg_tpu_torch.eval import accuracy as eacc
+        g = self.rd.load_arrays("genome_truth")["genome"]
+        rep = eacc.evaluate(np.asarray(bases), np.asarray(offsets), g,
+                            device=self.device)
+        out = {f"cheat_{k}": v for k, v in rep.items()
+               if k in ("genome_covered_frac", "misassembly_breaks",
+                        "anchor_place_rate")}
+        self.log(f"  [{tag}] CHEAT: " + ", ".join(
+            f"{k}={v}" for k, v in out.items()))
+        return out

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--genome-size N] [--full-genome-size N]
                           [--diploid-genome-size N] [--seed S]
+                          [--only 7,8,9,9b,10,11]
 
 Needs one CUDA GPU (it raises without one) and `nvcc`; it imports nothing
 of JAX or of the JAX package. Phases, each printed as it ends:
@@ -26,7 +27,8 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      (one count_reads batch of 65,536 x 100 bp) and 65,536 keys, the
      passes planned, the bytes moved against the LSD floor, and median
      times in turns of plain version, kernel and torch.sort;
-  4. spectrum_step(K=24) on the same batch, against the CPU spectrum;
+  4. spectrum_step(K=24) on the same batch, against the CPU spectrum
+     (kept for phase 11);
   5. bit-parallel banded-DP parity on the card: the kernel against the
      plain ops/banded.banded_align, exactly (cost and t_end), at (a) the
      align_frags rescue shape (65,536 x 260 x 276, band 8; reads with
@@ -55,14 +57,18 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      12,000 x 12,000 (16 real rows) band 192; kernel (device_ms) and plain
      version (median_ms) in turns at (1, band 96), (3), (5), (6) and (9),
      each with its bound and the bound's three terms (general_bound);
-  7. the contig slice and align_frags through Pipeline(device="cuda"):
+  7. the contig slice and align_frags through Pipeline(device="cuda")
+     with profile_dir set, so every stage runs under torch.profiler (CPU
+     and CUDA activities) and writes its Chrome trace:
      prepare_sim_inputs -> validate_inputs -> remove_dodgy -> precorrect
      -> find_errors -> clean_reads -> fill_fragments -> unipaths ->
      report -> align_frags on a simulated genome (--genome-size, default
      200 kb, 100x fragment coverage, 100 bp reads, 0.5 % error, seed 0,
-     batch_reads 65536), with each stage's wall time and kernel launches.
-     It checks that the sort kernel ran in validate_inputs, precorrect,
-     find_errors and unipaths and the banded kernel in align_frags; that
+     batch_reads 65536), with each stage's (traced) wall time and kernel
+     launches. It checks that every stage wrote a trace, that the traces
+     of validate_inputs, precorrect, find_errors and unipaths name the
+     radix sort's kernels (SORT_KERNEL_NAMES), that the sort kernel ran in
+     those stages and the banded kernel in align_frags; that
      the 25-mer genome-size estimate is within 20 % of the truth; that
      corrections were made and the sampled fraction of true 24-mers rises
      from the input reads to the cleaned reads; that the contigs total
@@ -73,7 +79,17 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      libraries (100x fragment reads of 100 bp at 0.5 % error, 50x jump
      reads of 3000 +- 300, seed 0, batch_reads 65536, stage_workers 2) on
      a genome of --full-genome-size (default 4.6 Mb) carrying repeat
-     families like an E. coli chromosome (REPEAT_FAMILIES). It prints each
+     families like an E. coli chromosome (REPEAT_FAMILIES), from files:
+     the simulated reads are written with numpy (write_fastq,
+     write_pairs_sam) as the fragment library's mate files frag_1.fastq
+     and frag_2.fastq (named in in_groups.csv by frag_?.fastq), the jump
+     library as one SAM with paired flags (every odd pair's second mate
+     reverse-complemented, flag 0x10) and in_libs.csv / in_groups.csv
+     (write_sheets), then imported by pipeline/prepare.prepare_inputs
+     (the native FASTQ reader; the per-line SAM parse); every imported
+     pair must hold the simulated pair's two reads (codes, quals,
+     lengths), and the seconds of writing, reading FASTQ, reading SAM and
+     prepare_inputs are printed. It prints each
      stage's wall time from the manifest and each kernel's launches by
      stage, and checks that the general kernel ran, in patch_gaps only;
      that the bit-parallel kernel ran in align_frags and align_jumps; that
@@ -89,12 +105,23 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      each kept batch of the general one, each with its bound (for the
      general kernel, its three terms) and, for the bit-parallel kernel,
      its share of idle lane-rows;
-  9. run_full through the port on the card and on the CPU over
+  9. run_full through the port's CLI, pipeline.run.main with --in-libs /
+     --in-groups, check_mode=true, evaluation=CHEAT and batch_reads=4096,
+     once with --device cuda and once with --device cpu, over
      tests/test_torch_full.py's 40 kb genome with a two-copy 2.5 kb
-     repeat (40x fragment, 15x jump reads of 4000 +- 350, batch_reads
-     4096; cmp_inputs): the general kernel must launch in patch_gaps on
-     the card, and every artifact of CMP_ARTIFACTS, every file of
-     CMP_TEXT_FILES and every stage metric must be byte-identical;
+     repeat (40x fragment, 15x jump reads of 4000 +- 350; cmp_inputs)
+     with N bases drawn from the seed (with_n_bases: 0.1 % of bases, and
+     1 % of reads ending in a run of 5-10 N), written as files as in
+     phase 8, genome_truth in each run dir: check_mode's spectrum must
+     launch the sort kernel and patch_gaps the general kernel on the
+     card, each run must log the check line and two CHEAT lines, and
+     every file (arrays key by key), every stage metric (the cheat_*
+     ones included) and the check/CHEAT log lines must be the same
+     (run_dir_diff); the card run's every bit-parallel call is captured
+     and held against its plain version, and counted against the CPU's
+     route, where a query N matches a target pad (query_n_split); a
+     difference is allowed only in CLI_N_SPLIT_MAY_DIFFER and only where
+     that split shows;
  9b. the same on tests/test_torch_full_long.py's inputs (long_cmp_inputs:
      the reference's tests/test_repeat_longread_e2e.py 60 kb genome with
      a 2.5 kb repeat, 50x fragment, 15x jump and 12x PacBio reads, plus a
@@ -118,11 +145,24 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      FASTA and EFASTA exist; after it, every kept DP call of the new
      stages is held against the plain version, exactly, and timed in
      turns (phase_dp_diploid).
+ 11. the tools CLI on the card (phase_tools, tools.main with its stdout
+     captured): kspec on the flagship batch written as FASTQ at K=24
+     (the spectrum it computes must equal phase 4's); align at bench.py's
+     lookup shape (a 2 Mb genome in 16 contigs as FASTA, the first 65,536
+     reads of a 3.3x library at 1 % error as FASTQ): >= 90 % of the reads
+     that lie inside one contig placed at their true contig, position and
+     strand, and the bit-parallel kernel launched in the rescue;
+     longproto on a 100 kb region with 50x of 250 bp pairs, insert 450
+     +- 20, 0.4 % error: its longest contig covers >= 90 % of the region,
+     and the sort kernel launched in friend finding and in counting
+     (LaunchStages). Each subcommand's seconds and launches are printed.
 
-Each phase prints its seconds. Any failed check raises, so the exit code
-is not 0. The line before the last is the kernel record {"kernels":
+With --only, phases 1-6 and the listed ones run (a rehearsal); without
+it, every phase. Each phase prints its seconds. Any failed check raises,
+so the exit code is not 0. The line before the last is the kernel record {"kernels":
 [...]}, whose `launches` are each kernel's launches in the pipeline
-phases 7, 8 and 10, each counted from 0 just before its phase, and whose
+phases 7, 8, 9 (the card's run), 9b (the card's run) and 10 and the tools
+phase 11, each counted from 0 just before its phase, and whose
 `bound_ms` is the least time of the
 timed call: its bytes (for the DP kernels, those its data needs:
 dp_terms) over 3.35 TB/s against its integer operations (BP_OPS_PER_ROW
@@ -142,6 +182,8 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import shutil
 import subprocess
@@ -522,6 +564,7 @@ def phase_spectrum(codes: np.ndarray):
     check(int(spec.sum()) == int(nu), "spectrum mass != distinct kmers")
     say(f"[spectrum] spectrum_step(K=24): {int(nu)} distinct kmers, "
         f"equal to the plain version")
+    return cspec
 
 
 def dp_problems(rng, B: int, Lq: int, Lt: int, band: int,
@@ -918,9 +961,14 @@ SLICE_STAGES = ("validate_inputs", "remove_dodgy", "precorrect",
                 "report", "align_frags")
 
 
+# the radix sort's kernels as torch.profiler names them (csrc/radix_sort.cu)
+SORT_KERNEL_NAMES = ("histogram_kernel", "onesweep_pass_kernel")
+
+
 def phase_slice(genome_size: int, seed: int):
-    """The contig slice and align_frags through Pipeline(device="cuda");
-    returns each kernel's launches in the run."""
+    """The contig slice and align_frags through Pipeline(device="cuda")
+    with profile_dir set: each stage under torch.profiler, its trace
+    checked; returns each kernel's launches in the run."""
     from allpathslg_tpu_torch.ops.cuda import banded_cuda, sort_cuda
     from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
     from allpathslg_tpu_torch.pipeline.rundir import RunDir
@@ -937,7 +985,8 @@ def phase_slice(genome_size: int, seed: int):
     say(f"[slice] prepare_sim_inputs: genome {genome_size} bp, "
         f"{coverage:g}x, {read_len} bp reads, error {err}: "
         f"{time.perf_counter() - t0:.1f} s")
-    cfg = AssemblyConfig.from_overrides()
+    trace_dir = run_dir / "trace"
+    cfg = AssemblyConfig.from_overrides(profile_dir=str(trace_dir))
 
     def log(msg: str):  # the unipaths stage's own step times
         if msg.startswith("  [unipaths]"):
@@ -961,10 +1010,25 @@ def phase_slice(genome_size: int, seed: int):
             f"sort {launches[stage]['sort']}, banded "
             f"{launches[stage]['banded']}; {shown}")
     total = {k: m.launch_count() for k, m in kernels.items()}
+    traces = {}
+    for stage in SLICE_STAGES:
+        trace = trace_dir / stage / "trace.json"
+        check(trace.exists(), f"profile_dir: {stage} wrote no trace")
+        text = trace.read_text()
+        check('"traceEvents"' in text, f"{trace} is not a Chrome trace")
+        traces[stage] = (trace.stat().st_size,
+                         {k: text.count(k) for k in SORT_KERNEL_NAMES})
+    say(f"[slice] profile_dir: a torch.profiler trace a stage (MB; sort "
+        f"kernel names in it): " + "; ".join(
+            f"{st} {size / 1e6:.1f} ({names})"
+            for st, (size, names) in traces.items()))
     for stage in ("validate_inputs", "precorrect", "find_errors",
                   "unipaths"):
         check(launches[stage]["sort"] > 0,
               f"{stage} never launched the sort kernel")
+        check(all(traces[stage][1].values()),
+              f"the trace of {stage} names no radix-sort kernel "
+              f"{traces[stage][1]}")
     check(launches["align_frags"]["banded"] > 0,
           "align_frags never launched the banded kernel")
 
@@ -1041,36 +1105,179 @@ def repeat_genome(size: int, seed: int) -> np.ndarray:
     return g
 
 
+# ---- real-read files, written with numpy (phases 8, 9 and 11) ----
+ASCII_BASES = np.frombuffer(b"ACGTN", np.uint8)
+ROWS_A_CHUNK = 1 << 19
+LIB_HEADER = ("library_name,project_name,organism_name,type,paired,"
+              "frag_size,frag_stddev,insert_size,insert_stddev,"
+              "read_orientation,genomic_start,genomic_end\n")
+
+
+def _digits(values, width: int) -> np.ndarray:
+    """uint8 [n, width]: values as zero-padded decimal ASCII."""
+    pw = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    return (np.asarray(values, np.int64)[:, None] // pw % 10
+            + 48).astype(np.uint8)
+
+
+def _text(n: int, text: bytes) -> np.ndarray:
+    return np.tile(np.frombuffer(text, np.uint8), (n, 1))
+
+
+def write_fastq(path, codes, quals, name: bytes, rows=None):
+    """Reads of one length (those of `rows`, else all) as FASTQ records
+    `@{name}{i:09d}`, built as byte matrices (one row a record) a chunk of
+    reads at a time."""
+    rows = np.arange(len(codes)) if rows is None else np.asarray(rows)
+    with open(path, "wb") as f:
+        for s in range(0, len(rows), ROWS_A_CHUNK):
+            pick = rows[s:s + ROWS_A_CHUNK]
+            c, q = np.asarray(codes)[pick], np.asarray(quals)[pick]
+            m = len(c)
+            f.write(np.concatenate([
+                _text(m, b"@" + name), _digits(np.arange(s, s + m), 9),
+                _text(m, b"\n"), ASCII_BASES[np.minimum(c, 4)],
+                _text(m, b"\n+\n"), (q + 33).astype(np.uint8),
+                _text(m, b"\n")], axis=1).tobytes())
+
+
+def write_pairs_sam(path, codes, quals, pairs, name: bytes):
+    """Read pairs of one length as unaligned SAM records: each pair's
+    mates in turn with flags 0x1|0x40 and 0x1|0x80, the second mate of
+    every odd pair stored reverse-complemented with 0x10 (io/sam.read_sam
+    restores its sequenced orientation)."""
+    with open(path, "wb") as f:
+        f.write(b"@HD\tVN:1.6\tSO:unsorted\n")
+        for s in range(0, len(pairs), ROWS_A_CHUNK):
+            p = np.asarray(pairs[s:s + ROWS_A_CHUNK])
+            m = len(p)
+            qname = np.concatenate([_text(m, name),
+                                    _digits(np.arange(s, s + m), 9)], axis=1)
+            rc = (np.arange(s, s + m) % 2 == 1)[:, None]
+            c1, q1 = codes[p[:, 1]], quals[p[:, 1]]
+            c1 = np.where(rc, np.where(c1[:, ::-1] < 4, 3 - c1[:, ::-1], 4),
+                          c1)
+            q1 = np.where(rc, q1[:, ::-1], q1)
+            recs = []
+            for c, q, flag in ((codes[p[:, 0]], quals[p[:, 0]],
+                                _text(m, b"65")),
+                               (c1, q1, _digits(0x81 | 0x10 * rc[:, 0], 3))):
+                recs += [qname, _text(m, b"\t"), flag,
+                         _text(m, b"\t*\t0\t0\t*\t*\t0\t0\t"),
+                         ASCII_BASES[np.minimum(c, 4)], _text(m, b"\t"),
+                         (q + 33).astype(np.uint8), _text(m, b"\n")]
+            f.write(np.concatenate(recs, axis=1).tobytes())
+
+
+def write_sheets(d: Path, frag, jump):
+    """in_libs.csv (the reference's columns) and in_groups.csv for a
+    fragment library in mate files frag_1.fastq / frag_2.fastq (named by
+    the frag_?.fastq wildcard) and a jump library in jump.sam; frag and
+    jump are (insert, sd)."""
+    (d / "in_libs.csv").write_text(
+        LIB_HEADER
+        + f"frag,smoke,sim,fragment,1,{frag[0]},{frag[1]},,,inward,,\n"
+        + f"jump,smoke,sim,jumping,1,,,{jump[0]},{jump[1]},outward,,\n")
+    (d / "in_groups.csv").write_text(
+        "group_name,library_name,file_name\n"
+        "frag,frag,frag_?.fastq\n"
+        "jump,jump,jump.sam\n")
+
+
+def write_read_files(d: Path, frag: dict, jump: dict, frag_lib, jump_lib):
+    """The files a user would hand the port: frag {codes, quals, pairs} as
+    mate FASTQs, jump as one SAM, and the sheets. Returns seconds."""
+    t0 = time.perf_counter()
+    d.mkdir(parents=True, exist_ok=True)
+    for mate in (0, 1):
+        write_fastq(d / f"frag_{mate + 1}.fastq", frag["codes"],
+                    frag["quals"], b"f", np.asarray(frag["pairs"])[:, mate])
+    write_pairs_sam(d / "jump.sam", np.asarray(jump["codes"]),
+                    np.asarray(jump["quals"]), np.asarray(jump["pairs"]),
+                    b"j")
+    write_sheets(d, frag_lib, jump_lib)
+    return time.perf_counter() - t0
+
+
+def check_imported_pairs(rd, art: str, sim: dict, tag: str):
+    """Every pair of artifact `art` (as prepare_inputs saved it) holds the
+    two reads of the simulated pair of the same rank: codes, quals and
+    lengths exactly."""
+    a = rd.load_arrays(art, mmap=True)
+    got_pairs, want_pairs = np.asarray(a["pairs"]), np.asarray(sim["pairs"])
+    check(got_pairs.shape == want_pairs.shape,
+          f"[{tag}] {art}: {len(got_pairs)} pairs imported, "
+          f"{len(want_pairs)} simulated")
+    for s in range(0, len(got_pairs), ROWS_A_CHUNK):
+        for mate in (0, 1):
+            got = got_pairs[s:s + ROWS_A_CHUNK, mate]
+            want = want_pairs[s:s + ROWS_A_CHUNK, mate]
+            for key in ("codes", "quals", "lengths"):
+                x, y = np.asarray(a[key])[got], np.asarray(sim[key])[want]
+                check(x.shape == y.shape and np.array_equal(x, y),
+                      f"[{tag}] {art}: imported {key} differ from the "
+                      f"simulated pair's (pairs {s}..)")
+
+
 INSERT, INSERT_SD = 3000, 300
+FRAG_INSERT, FRAG_SD = 180, 18     # eval/sim.simulate_paired_reads' default
 
 
 def full_inputs(rd, genome_size: int, seed: int):
-    """Save run_full's inputs in run dir `rd`: the repeat genome, 100x
-    fragment reads and 50x jump reads of INSERT +- INSERT_SD (100 bp, 0.5 %
-    error), from `seed`."""
+    """Run_full's inputs in run dir `rd`, from files: the repeat genome,
+    100x fragment reads and 50x jump reads of INSERT +- INSERT_SD (100 bp,
+    0.5 % error, from `seed`) written as mate FASTQs, one SAM and library
+    sheets, then imported by pipeline/prepare.prepare_inputs; every
+    imported pair is checked against the simulated one. genome_truth is
+    saved for evaluate."""
     from allpathslg_tpu_torch.eval import sim
+    from allpathslg_tpu_torch.pipeline.prepare import prepare_inputs
 
     t0 = time.perf_counter()
     g = repeat_genome(genome_size, seed)
     fb, fp, _ = sim.simulate_paired_reads(g, coverage=100.0, read_len=100,
                                           error_rate=0.005, seed=seed + 1)
-    rd.save_arrays("frag_reads_orig", codes=np.asarray(fb.codes),
-                   lengths=np.asarray(fb.lengths), quals=np.asarray(fb.quals),
-                   pairs=np.asarray(fp.pairs))
     jb, jp, _ = sim.simulate_paired_reads(
         g, coverage=50.0, read_len=100, error_rate=0.005, insert_mean=INSERT,
         insert_sd=INSERT_SD, outward=True, seed=seed + 2)
-    rd.save_arrays("jump_reads_orig", codes=np.asarray(jb.codes),
-                   lengths=np.asarray(jb.lengths), quals=np.asarray(jb.quals),
-                   pairs=np.asarray(jp.pairs),
-                   lib_id=np.zeros(len(jp.pairs), np.int32),
-                   lib_sep=np.array([INSERT], np.int32),
-                   lib_sd=np.array([INSERT_SD], np.int32))
+    frag = dict(codes=np.asarray(fb.codes), quals=np.asarray(fb.quals),
+                lengths=np.asarray(fb.lengths), pairs=np.asarray(fp.pairs))
+    jump = dict(codes=np.asarray(jb.codes), quals=np.asarray(jb.quals),
+                lengths=np.asarray(jb.lengths), pairs=np.asarray(jp.pairs))
+    t_sim = time.perf_counter() - t0
+    files = Path(rd.path) / "reads"
+    t_write = write_read_files(files, frag, jump, (FRAG_INSERT, FRAG_SD),
+                               (INSERT, INSERT_SD))
+    sizes = {p.name: p.stat().st_size for p in files.iterdir()}
+    timer = StageTimer((("io.native_fastq", "read_fastq_arrays"),
+                        ("io.sam", "read_sam")))
+    timer.install()
+    try:
+        t0 = time.perf_counter()
+        counts = prepare_inputs(rd, str(files / "in_libs.csv"),
+                                str(files / "in_groups.csv"),
+                                log=lambda *a: None)
+        t_prep = time.perf_counter() - t0
+    finally:
+        timer.remove()
+    shutil.rmtree(files)
+    reads = {name: secs for (_, name), (secs, _) in timer.totals.items()}
+    t0 = time.perf_counter()
+    check_imported_pairs(rd, "frag_reads_orig", frag, "full")
+    check_imported_pairs(rd, "jump_reads_orig", jump, "full")
+    t_check = time.perf_counter() - t0
+    del frag, jump, fb, jb
     rd.save_arrays("genome_truth", genome=g)
     say(f"[full] inputs: genome {genome_size} bp with repeat families "
-        f"{REPEAT_FAMILIES}; {fb.n_reads} fragment reads (100x), "
-        f"{jb.n_reads} jump reads (50x, {INSERT} +- {INSERT_SD}): "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{REPEAT_FAMILIES}; {counts['frag_reads_orig']} fragment reads "
+        f"(100x), {counts['jump_reads_orig']} jump reads (50x, {INSERT} +- "
+        f"{INSERT_SD}); simulated {t_sim:.1f} s")
+    say(f"[full] ingest: wrote {sizes} (bytes) in {t_write:.1f} s; "
+        f"prepare_inputs {t_prep:.1f} s, of which reading FASTQ (native "
+        f"reader) {reads['io.native_fastq.read_fastq_arrays']:.1f} s and "
+        f"SAM (per-line parse, as the reference) "
+        f"{reads['io.sam.read_sam']:.1f} s; every imported pair == its "
+        f"simulated pair (codes, quals, lengths): {t_check:.1f} s")
 
 
 def lane_idle_share(q_len: np.ndarray, Lq: int, warp: int = 32) -> float:
@@ -1625,6 +1832,355 @@ def phase_long_compare():
     return card
 
 
+# Phase 9's N bases, drawn from the seed: a share of all bases, and a share
+# of reads that end in a run of N of a length in N_TAIL_LEN
+N_BASE_RATE, N_TAIL_READS, N_TAIL_LEN = 0.001, 0.01, (5, 10)
+# What phase 9 may find different between the card and the CPU on
+# N-bearing reads, and only when the bit-parallel kernel's query-N split
+# (ROADMAP Queue 3) shows in its captured calls: none so far
+CLI_N_SPLIT_MAY_DIFFER = ()
+
+
+def with_n_bases(lib: dict, rng) -> dict:
+    """A copy of a read library {codes, lengths, ...} with N_BASE_RATE of
+    its bases set to N and N_TAIL_READS of its reads ending in an N run."""
+    codes = np.array(lib["codes"])
+    lengths = np.asarray(lib["lengths"])
+    col = np.arange(codes.shape[1])[None, :]
+    inside = col < lengths[:, None]
+    codes[(rng.random(codes.shape) < N_BASE_RATE) & inside] = 4
+    tail = rng.random(len(codes)) < N_TAIL_READS
+    run = rng.integers(N_TAIL_LEN[0], N_TAIL_LEN[1] + 1, len(codes))
+    codes[tail[:, None] & inside & (col >= (lengths - run)[:, None])] = 4
+    return {**lib, "codes": codes}
+
+
+def _log_lines(d: Path, marks=("[check]", "] CHEAT:")) -> list:
+    """pipeline.log's lines that hold one of `marks`, without the stamp."""
+    lines = (d / "pipeline.log").read_text().splitlines()
+    return [ln[20:] for ln in lines if any(m in ln for m in marks)]
+
+
+def run_dir_diff(a: Path, b: Path) -> list:
+    """What differs between two run dirs: files (arrays key by key),
+    stage metrics and the check and CHEAT log lines."""
+    from allpathslg_tpu_torch.pipeline.rundir import RunDir
+
+    skip = ("pipeline.log", "manifest.json")
+    names = sorted(str(p.relative_to(a)) for p in a.rglob("*")
+                   if p.is_file() and p.name not in skip)
+    other = sorted(str(p.relative_to(b)) for p in b.rglob("*")
+                   if p.is_file() and p.name not in skip)
+    diff = sorted(set(names) ^ set(other))
+    rd_a, rd_b = RunDir(str(a)), RunDir(str(b))
+    for name in sorted(set(names) & set(other)):
+        if name.endswith(".npz"):
+            x, y = rd_a.load_arrays(name[:-4]), rd_b.load_arrays(name[:-4])
+            diff += [f"{name}[{k}]" for k in sorted(set(x) | set(y))
+                     if k not in x or k not in y or x[k].dtype != y[k].dtype
+                     or x[k].shape != y[k].shape
+                     or x[k].tobytes() != y[k].tobytes()]
+        elif (a / name).read_bytes() != (b / name).read_bytes():
+            diff.append(name)
+    sa, sb = rd_a.manifest["stages"], rd_b.manifest["stages"]
+    diff += [f"metrics:{st}" for st in sorted(set(sa) | set(sb))
+             if sa.get(st, {}).get("metrics") != sb.get(st, {}).get("metrics")]
+    if _log_lines(a) != _log_lines(b):
+        diff.append("pipeline.log: check/CHEAT lines")
+    return diff
+
+
+def query_n_split(capture: DPCapture) -> dict:
+    """Every captured bit-parallel call of phase 9's card run held against
+    its plain version (a query code >= 4 matches nothing, as in the
+    kernel), exactly; and counted against ops/banded.banded_align on the
+    same inputs, the CPU pipeline's route, where a query N matches a
+    target pad 4: the calls and rows where that split changes the
+    result."""
+    from allpathslg_tpu_torch.ops import banded
+    from allpathslg_tpu_torch.ops.cuda import banded_cuda
+
+    out = {"calls": 0, "rows": 0, "split_calls": 0, "split_rows": 0,
+           "stages": set()}
+    for key, kept in capture.kept.items():
+        if key[0] != "banded_bp":
+            continue
+        for arrays, kw, (cost, t_end) in kept:
+            want = banded_cuda.banded_align_bp_plain(*arrays, **kw)
+            check(torch.equal(cost, want[0]) and torch.equal(t_end, want[1]),
+                  f"[cli] bit-parallel kernel != plain version on a {key[1]} "
+                  f"call")
+            cpu_c, cpu_e = banded.banded_align(*arrays, **kw)
+            split = (cost != cpu_c) | (t_end != cpu_e)
+            n = int(split.sum())
+            out["calls"] += 1
+            out["rows"] += cost.shape[0]
+            if n:
+                out["split_calls"] += 1
+                out["split_rows"] += n
+                out["stages"].add(key[1])
+    return out
+
+
+def phase_cli_compare(seed: int):
+    """Phase 9: tests/test_torch_full.py's 40 kb inputs with N bases
+    (with_n_bases) written as files, then pipeline.run.main from the
+    sheets with check_mode and evaluation=CHEAT, once on the card and
+    once on the CPU; every file, array, stage metric and check/CHEAT log
+    line compared. Returns the card run's launches by stage."""
+    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch.pipeline import run as prun
+    from allpathslg_tpu_torch.pipeline.rundir import RunDir
+
+    base = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(base, ignore_errors=True)
+    inputs = cmp_inputs()
+    rng = np.random.default_rng(seed + 9)
+    libs = {k: with_n_bases({key: np.asarray(v) for key, v in
+                             inputs[k].items()}, rng)
+            for k in ("frag_reads_orig", "jump_reads_orig")}
+    n_bases = {k: int((v["codes"] == 4).sum()
+                      - (v["codes"].shape[1] - v["lengths"]).sum())
+               for k, v in libs.items()}
+    files = base / "reads"
+    write_read_files(files, libs["frag_reads_orig"], libs["jump_reads_orig"],
+                     (FRAG_INSERT, FRAG_SD), (4000, 350))
+    argv = ["--in-libs", str(files / "in_libs.csv"), "--in-groups",
+            str(files / "in_groups.csv"), "check_mode=true",
+            "evaluation=CHEAT", "batch_reads=4096"]
+    capture = DPCapture()
+    capture.KEEP = 1 << 30            # every call
+    card, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        d = base / device
+        RunDir(str(d)).save_arrays("genome_truth",
+                                   genome=inputs["genome_truth"]["genome"])
+        launches.reset()
+        if device == "cuda":
+            capture.install()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = prun.main(["--run-dir", str(d), "--device", device]
+                               + argv)
+            torch.cuda.synchronize()
+        finally:
+            capture.remove()
+        walls[device] = time.perf_counter() - t0
+        check(rc == 0, f"[cli] pipeline.run.main on {device} returned {rc}")
+        if device == "cuda":
+            card = launches.by_stage()
+    say(f"[cli] inputs: {n_bases} N bases within reads ({N_BASE_RATE} of "
+        f"bases, {N_TAIL_READS} of reads ending in 5-10 N); run_full from "
+        f"sheets through pipeline.run.main with check_mode and CHEAT: card "
+        f"{walls['cuda']:.1f} s, CPU {walls['cpu']:.1f} s; card launches "
+        f"by stage {card}")
+    check(card.get("validate_inputs", {}).get("radix_sort", 0) > 0,
+          "[cli] check_mode's spectrum never launched the sort kernel")
+    check(card.get("patch_gaps", {}).get("banded_general", 0) > 0,
+          "[cli] patch_gaps never launched the general kernel")
+    for device in ("cuda", "cpu"):
+        lines = _log_lines(base / device)
+        check("  [check] spectrum oracle ok on 512 reads" in lines,
+              f"[cli] no check_mode line in the {device} run's log")
+        check(sum("] CHEAT:" in ln for ln in lines) == 2,
+              f"[cli] the {device} run logged no CHEAT metrics")
+    split = query_n_split(capture)
+    diff = run_dir_diff(base / "cuda", base / "cpu")
+    say(f"[cli] bit-parallel calls on the card {split['calls']} "
+        f"({split['rows']} rows), each == its plain version; where a query "
+        f"N meets a target pad the CPU route differs in "
+        f"{split['split_calls']} calls ({split['split_rows']} rows; stages "
+        f"{sorted(split['stages'])})")
+    unexplained = [x for x in diff if x not in CLI_N_SPLIT_MAY_DIFFER]
+    check(not unexplained, f"[cli] the card's run differs from the CPU's "
+          f"in {unexplained}")
+    check(not diff or split["split_rows"] > 0,
+          f"[cli] {diff} differ with no query-N split in the DP calls")
+    fe = RunDir(str(base / "cuda")).metrics("find_errors")
+    un = RunDir(str(base / "cuda")).metrics("unipaths")
+    n_files = sum(1 for p in (base / "cuda").rglob("*") if p.is_file())
+    say(f"[cli] card == CPU: {n_files} files (arrays key by key), every "
+        f"stage metric and the check/CHEAT log lines"
+        f"{' except ' + str(diff) if diff else ''}; CHEAT: true-kmer frac "
+        f"{fe['cheat_true_kmer_frac_before']} -> "
+        f"{fe['cheat_true_kmer_frac_after']}, unipaths covered "
+        f"{un['cheat_genome_covered_frac']}")
+    shutil.rmtree(base, ignore_errors=True)
+    return card
+
+
+# Phase 11: the tools CLI's inputs (bench.py's lookup cell for align;
+# tests/test_longproto.py's read shape for longproto, its region scaled up)
+ALIGN_GENOME, ALIGN_CONTIGS, ALIGN_READS = 2_000_000, 16, 65_536
+LONGPROTO_REGION, LONGPROTO_COVERAGE = 100_000, 50.0
+
+
+def _tool(argv) -> tuple:
+    """(stdout, seconds) of tools.main(argv)."""
+    from allpathslg_tpu_torch import tools
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tools.main(argv)
+    torch.cuda.synchronize()
+    check(rc == 0, f"tools {argv[0]} returned {rc}")
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+class LaunchStages:
+    """Counts the kernel launches made inside calls to module attributes
+    under a stage of their own (ops/cuda/launches.stage)."""
+
+    def __init__(self, targets):
+        self.targets = targets          # [(module name, attribute, stage)]
+        self._saved = []
+
+    def __enter__(self):
+        import importlib
+
+        from allpathslg_tpu_torch.ops.cuda import launches
+
+        for module, attr, stage in self.targets:
+            mod = importlib.import_module(f"allpathslg_tpu_torch.{module}")
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+
+            def wrapped(*a, _fn=fn, _stage=stage, **kw):
+                with launches.stage(_stage):
+                    return _fn(*a, **kw)
+
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
+def phase_tools(codes: np.ndarray, spectrum: torch.Tensor, seed: int):
+    """Phase 11: the tools CLI on the card. kspec on the flagship batch as
+    FASTQ (its spectrum == phase 4's), align at bench.py's lookup shape
+    (>= 90 % of the reads that lie inside one contig placed at their true
+    contig, position and strand; the bit-parallel kernel launched in the
+    rescue), longproto on a LONGPROTO_REGION region (the longest contig
+    covers >= 90 % of it; the sort kernel launched in friend finding and
+    in counting). Returns the launches of each kernel."""
+    from allpathslg_tpu_torch.eval import sim
+    from allpathslg_tpu_torch.io import fasta
+    from allpathslg_tpu_torch.kmer import spectrum as kspec
+    from allpathslg_tpu_torch.models import flagship
+    from allpathslg_tpu_torch.ops.cuda import launches
+
+    d = ROOT / "build" / "chip_smoke_tools"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    total = {}
+
+    def count(tag):
+        by = launches.by_stage()
+        for kernels in by.values():
+            for k, n in kernels.items():
+                total[k] = total.get(k, 0) + n
+        say(f"[tools] {tag} launches by stage {by}")
+        return by
+
+    # kspec
+    write_fastq(d / "flagship.fastq", codes, np.full_like(codes, 40), b"k")
+    got = []
+    orig = flagship.spectrum_step
+
+    def keep(*a, **kw):
+        out = orig(*a, **kw)
+        got.append(out[0].cpu())
+        return out
+
+    launches.reset()
+    flagship.spectrum_step = keep
+    try:
+        out, secs = _tool(["kspec", str(d / "flagship.fastq"), "--k",
+                           str(FLAGSHIP_K)])
+    finally:
+        flagship.spectrum_step = orig
+    by = count("kspec")
+    check(len(got) == 1 and torch.equal(got[0], spectrum),
+          "tools kspec's spectrum != phase 4's")
+    ana = kspec.analyze(spectrum.numpy())
+    res = json.loads(out)
+    check(res["n_distinct"] == ana.n_distinct
+          and res["genome_size_est"] == ana.genome_size_est,
+          f"tools kspec printed {res}, phase 4's spectrum gives {ana}")
+    check(by.get(None, {}).get("radix_sort", 0) > 0,
+          "tools kspec never launched the sort kernel")
+    say(f"[tools] kspec: {secs:.1f} s on {codes.shape[0]} x {codes.shape[1]} "
+        f"reads at K={FLAGSHIP_K}: spectrum == phase 4's; {out.strip()}")
+
+    # align
+    genome = sim.random_genome(ALIGN_GENOME, seed=5)
+    cl = ALIGN_GENOME // ALIGN_CONTIGS
+    fasta.write_fasta(str(d / "contigs.fasta"),
+                      [(f"contig_{i}", genome[i * cl:(i + 1) * cl])
+                       for i in range(ALIGN_CONTIGS)])
+    rb, _, truth = sim.simulate_paired_reads(genome, coverage=3.3,
+                                             error_rate=0.01, seed=6)
+    n = ALIGN_READS
+    rcodes = np.asarray(rb.codes)[:n]
+    write_fastq(d / "reads.fastq", rcodes, np.asarray(rb.quals)[:n], b"r")
+    launches.reset()
+    out, secs = _tool(["align", str(d / "reads.fastq"),
+                       str(d / "contigs.fasta")])
+    by = count("align")
+    rows = [ln.split("\t") for ln in out.splitlines()]
+    check(len(rows) == n, f"tools align printed {len(rows)} rows for {n}")
+    start = truth.read_starts[:n].astype(np.int64)
+    rc = truth.read_rc[:n]
+    L = rcodes.shape[1]
+    contig = start // cl
+    inside = start + L <= (contig + 1) * cl
+    want_pos = start - contig * cl + np.where(rc, L - 1, 0)
+    placed = np.array([r[5] == "1" and r[1] == f"contig_{c}"
+                       and int(r[2]) == p and r[3] == ("-" if o else "+")
+                       for r, c, p, o in zip(rows, contig, want_pos, rc)])
+    rate = float(placed[inside].mean())
+    aligned = float(np.mean([r[5] == "1" for r in rows]))
+    check(rate >= 0.90, f"tools align placed {rate} of the reads at their "
+          f"true place (< 0.90)")
+    check(by.get(None, {}).get("banded_bp", 0) > 0,
+          "tools align never launched the bit-parallel kernel")
+    say(f"[tools] align: {secs:.1f} s for {n} reads on {ALIGN_GENOME} bp in "
+        f"{ALIGN_CONTIGS} contigs; aligned {aligned:.4f}; of the "
+        f"{int(inside.sum())} reads inside one contig, {rate:.4f} at their "
+        f"true contig, position and strand")
+
+    # longproto
+    region = sim.random_genome(LONGPROTO_REGION, seed=seed + 81)
+    lb, _, _ = sim.simulate_paired_reads(
+        region, coverage=LONGPROTO_COVERAGE, read_len=250, insert_mean=450,
+        insert_sd=20, error_rate=0.004, seed=seed + 82)
+    write_fastq(d / "long.fastq", np.asarray(lb.codes), np.asarray(lb.quals),
+                b"l")
+    launches.reset()
+    with LaunchStages((("long.friends", "find_friends", "friends"),
+                       ("kmer.count", "count_reads_streaming", "count"))):
+        out, secs = _tool(["longproto", str(d / "long.fastq"), "--out",
+                           str(d / "longproto.fasta")])
+    by = count("longproto")
+    res = json.loads(out)
+    best = max((len(s) for _, s in fasta.read_fasta(
+        str(d / "longproto.fasta"))), default=0)
+    for stage in ("friends", "count"):
+        check(by.get(stage, {}).get("radix_sort", 0) > 0,
+              f"tools longproto never launched the sort kernel in {stage}")
+    check(best >= 0.9 * LONGPROTO_REGION, f"tools longproto's longest "
+          f"contig {best} < 0.9 x {LONGPROTO_REGION}")
+    say(f"[tools] longproto: {secs:.1f} s for {lb.n_reads} reads of 250 bp "
+        f"({LONGPROTO_COVERAGE:g}x of {LONGPROTO_REGION} bp); longest "
+        f"contig {best}; {res}")
+    shutil.rmtree(d, ignore_errors=True)
+    return total
+
+
 class StageTimer:
     """Host wall time of calls to module attributes, by the pipeline stage
     of the calling thread: {(stage, "module.attr"): [seconds, calls]}.
@@ -1821,7 +2377,16 @@ def main(argv=None) -> int:
     ap.add_argument("--diploid-genome-size", type=int, default=500_000,
                     help="haplotype of the diploid run_full phase (10)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="",
+                    help="run phases 1-6 and only these of 7, 8, 9, 9b, 10 "
+                         "and 11 (comma-separated), to rehearse them; the "
+                         "default runs every phase")
     args = ap.parse_args(argv)
+    only = set(filter(None, args.only.split(",")))
+
+    def wanted(phase: str) -> bool:
+        return not only or phase in only
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script only runs "
                          "on a GPU")
@@ -1842,28 +2407,50 @@ def main(argv=None) -> int:
     codes = flagship_codes(args.seed)
     record = phase_sort(codes, args.seed)
     done("3 sort")
-    phase_spectrum(codes)
+    spectrum = phase_spectrum(codes)
     done("4 spectrum")
     set_a_record = phase_banded(args.seed, int_rate)
     done("5 bit-parallel DP")
     general_record = phase_banded_general(args.seed, int_rate, chain)
     done("6 general DP")
-    slice_launches = phase_slice(args.genome_size, args.seed)
-    done("7 contig slice")
-    capture = DPCapture()
-    full_launches = phase_full(args.full_genome_size, args.seed, capture)
-    bp_record, general_full = phase_dp_batches(capture, int_rate, chain)
-    done("8 run_full")
-    phase_full_compare("compare", cmp_inputs(), dict(batch_reads=4096),
-                       CMP_ARTIFACTS, FULL_STAGES,
-                       [("patch_gaps", "banded_general")])
-    done("9 card == CPU")
-    phase_long_compare()
-    done("9b card == CPU, long reads")
-    capture10 = DPCapture(keep_per_stage=DIPLOID_KEEP_PER_STAGE)
-    diploid_launches = phase_diploid(args.diploid_genome_size, capture10)
-    err10, bp10, general10 = phase_dp_diploid(capture10, int_rate, chain)
-    done("10 diploid multi-library run_full")
+    kernels = ("radix_sort", "banded_bp", "banded_general")
+    launched = dict.fromkeys(kernels, 0)
+
+    def add(counts: dict):
+        for k in kernels:
+            launched[k] += counts.get(k, 0)
+
+    def add_by_stage(by_stage: dict):
+        for counts in by_stage.values():
+            add(counts)
+
+    if wanted("7"):
+        sl = phase_slice(args.genome_size, args.seed)
+        add({"radix_sort": sl["sort"], "banded_bp": sl["banded"]})
+        done("7 contig slice, traced")
+    bp_record = {"max_abs_err": 0, "library_ms": None}
+    general_full = {"max_abs_err": 0}
+    if wanted("8"):
+        capture = DPCapture()
+        add(phase_full(args.full_genome_size, args.seed, capture))
+        bp_record, general_full = phase_dp_batches(capture, int_rate, chain)
+        done("8 run_full from files")
+    if wanted("9"):
+        add_by_stage(phase_cli_compare(args.seed))
+        done("9 card == CPU through the CLI, N-bearing reads")
+    if wanted("9b"):
+        add_by_stage(phase_long_compare())
+        done("9b card == CPU, long reads")
+    err10 = {"banded_bp": 0, "banded_general": 0}
+    bp10, general10 = {}, {"long_read_patch": [], "assisted": []}
+    if wanted("10"):
+        capture10 = DPCapture(keep_per_stage=DIPLOID_KEEP_PER_STAGE)
+        add(phase_diploid(args.diploid_genome_size, capture10))
+        err10, bp10, general10 = phase_dp_diploid(capture10, int_rate, chain)
+        done("10 diploid multi-library run_full")
+    if wanted("11"):
+        add(phase_tools(codes, spectrum, args.seed))
+        done("11 tools CLI")
     bp_record["max_abs_err"] = max(bp_record["max_abs_err"],
                                    set_a_record.pop("max_abs_err"),
                                    err10["banded_bp"])
@@ -1884,20 +2471,17 @@ def main(argv=None) -> int:
         "name": "radix_sort_u64", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/radix_sort.cu",
         "replaces": "allpathslg_tpu/ops/pallas/sort_pallas.py:178",
-        "launches": (slice_launches["sort"] + full_launches["radix_sort"]
-                     + diploid_launches["radix_sort"]),
+        "launches": launched["radix_sort"],
         **record}, {
         "name": "banded_bp", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/banded_bp.cu",
         "replaces": "allpathslg_tpu/ops/pallas/banded_bp.py:294",
-        "launches": (slice_launches["banded"] + full_launches["banded_bp"]
-                     + diploid_launches["banded_bp"]),
+        "launches": launched["banded_bp"],
         **bp_record, **set_a_record}, {
         "name": "banded_general", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/banded_general.cu",
         "replaces": "allpathslg_tpu/ops/pallas/banded_pallas.py:127",
-        "launches": (full_launches["banded_general"]
-                     + diploid_launches["banded_general"]),
+        "launches": launched["banded_general"],
         **general_record,
         **general_full}]}))
     say(json.dumps({"ok": True, "device": {

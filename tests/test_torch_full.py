@@ -216,17 +216,6 @@ def test_cli_long_jumps_and_pacbio(tmp_path):
     assert not rd_t.has("jump_reads_orig")
 
 
-@pytest.mark.parametrize("flags", [
-    ["--frag-fastq", "r1.fastq"], ["--in-libs", "in_libs.csv"]])
-def test_cli_unported_inputs_raise(tmp_path, flags):
-    from allpathslg_tpu_torch.pipeline import run
-
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run.main(["--run-dir", str(tmp_path), "--sim-genome", "5000"]
-                 + flags)
-    assert not (tmp_path / "frag_reads_orig.npz").exists()
-
-
 def test_launch_counts_by_stage_under_threads():
     """Kernel launch counts stay exact and apart per stage when stages run
     in threads at once, as run_full's DAG runs them."""

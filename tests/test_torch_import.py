@@ -32,6 +32,7 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.ec.precorrect",
     "allpathslg_tpu_torch.ec.spectrum_ec",
     "allpathslg_tpu_torch.eval.accuracy",
+    "allpathslg_tpu_torch.eval.oracle",
     "allpathslg_tpu_torch.eval.sim",
     "allpathslg_tpu_torch.eval.stats",
     "allpathslg_tpu_torch.graph.cleanup",
@@ -41,13 +42,19 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.graph.unipath",
     "allpathslg_tpu_torch.io.efasta",
     "allpathslg_tpu_torch.io.fasta",
+    "allpathslg_tpu_torch.io.native_fastq",
+    "allpathslg_tpu_torch.io.sam",
     "allpathslg_tpu_torch.kmer.bits",
     "allpathslg_tpu_torch.kmer.count",
     "allpathslg_tpu_torch.kmer.kmerize",
     "allpathslg_tpu_torch.kmer.spectrum",
     "allpathslg_tpu_torch.long.consensus",
     "allpathslg_tpu_torch.long.eval_by_reads",
+    "allpathslg_tpu_torch.long.friends",
+    "allpathslg_tpu_torch.long.longproto",
+    "allpathslg_tpu_torch.long.supported",
     "allpathslg_tpu_torch.models.flagship",
+    "allpathslg_tpu_torch.native.build",
     "allpathslg_tpu_torch.ops.banded",
     "allpathslg_tpu_torch.ops.cuda.banded_cuda",
     "allpathslg_tpu_torch.ops.cuda.banded_general_cuda",
@@ -58,6 +65,7 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.ops.segmented",
     "allpathslg_tpu_torch.ops.sort",
     "allpathslg_tpu_torch.pipeline.config",
+    "allpathslg_tpu_torch.pipeline.prepare",
     "allpathslg_tpu_torch.pipeline.run",
     "allpathslg_tpu_torch.pipeline.rundir",
     "allpathslg_tpu_torch.pipeline.stages",
@@ -66,6 +74,7 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.scaffold.longjump",
     "allpathslg_tpu_torch.scaffold.scaffolder",
     "allpathslg_tpu_torch.scaffold.superb",
+    "allpathslg_tpu_torch.tools",
     "allpathslg_tpu_torch.utils.intdist",
 ]
 
@@ -144,6 +153,8 @@ def test_chip_smoke_fails_without_cuda_or_package(tmp_path, alone):
     ("eval.accuracy", "evaluate"),
     ("eval.accuracy", "base_error_report"),
     ("graph.unipath", "build_unipaths"),
+    ("long.friends", "find_friends"),
+    ("long.longproto", "long_proto"),
 ])
 def test_entry_points_default_to_the_card(module, name):
     """The port's functions that take a device run on the card unless the

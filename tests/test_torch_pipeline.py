@@ -5,7 +5,7 @@ find_errors -> clean_reads -> fill_fragments -> unipaths -> report ->
 align_frags on the same simulated genome (20 kb x 40x, batch_reads=4096,
 as tests/test_pipeline_mesh.py sizes it); every artifact (arrays, FASTA,
 EFASTA and the report text) and every stage metric must be identical.
-Also: the options that lead off the ported stages raise
+Also: a multi-device mesh (n_devices > 1, not ported) raises
 NotImplementedError, a CUDA pipeline without a card raises, and an
 interrupted find_errors resumes to the same artifacts.
 """
@@ -158,9 +158,6 @@ def test_find_errors_resumes_after_fault(both, tmp_path):
 
 @pytest.mark.parametrize("override,stage", [
     (dict(n_devices=2), None),
-    (dict(profile_dir="trace"), None),
-    (dict(evaluation="CHEAT"), None),
-    (dict(check_mode=True), "validate_inputs"),
 ])
 def test_off_slice_options_raise(tmp_path, override, stage):
     with pytest.raises(NotImplementedError, match="not ported"):
