@@ -1,12 +1,13 @@
-"""Build and load the port's native host library (C++ through ctypes).
+"""Build and load the port's native host libraries (C++ through ctypes).
 
-`fastq_reader.cpp` (a copy of the reference's) is compiled with
-`g++ -O3 -march=native -shared -fPIC` at first use into `build/native/`
-(gitignored), under a name that carries a hash of the source and the
+`fastq_reader.cpp` and `radix_sort.cpp` (copies of the reference's) are
+each compiled with `g++ -O3 -march=native -shared -fPIC` at first use into
+`build/native/` (gitignored), under a name that carries a hash of the source and the
 flags, as ops/cuda/nvcc.py names the kernels: an edit rebuilds, and
 nothing is ever written into the package directory. The compile goes to a
 temporary name and is renamed into place. A failed build raises with the
-compiler's stderr; there is no fallback.
+compiler's stderr; there is no fallback (the reference falls back to numpy
+when its library is missing; the port does not).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import os
 import subprocess
 import threading
 from pathlib import Path
+
+import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parents[1] / "build" / "native"
@@ -64,3 +67,36 @@ def fastq_lib() -> ctypes.CDLL:
                                ctypes.POINTER(ctypes.c_int),
                                ctypes.c_long, ctypes.c_long]
     return lib
+
+
+def radix_lib() -> ctypes.CDLL:
+    """The host LSD radix sort, with the reference's argtypes."""
+    lib = load("radix_sort")
+    lib.radix_sort_u64.restype = ctypes.c_int
+    lib.radix_sort_u64.argtypes = [ctypes.POINTER(ctypes.c_uint64),
+                                   ctypes.POINTER(ctypes.c_int64),
+                                   ctypes.c_int64]
+    return lib
+
+
+# Below this many keys the reference sorts with numpy's stable argsort
+# (its native/build.py:67); the two sorts give the same order
+NATIVE_SORT_MIN = 1 << 14
+
+
+def sort_u64_with_payload(keys, payload):
+    """Stable sort of uint64 keys with an int64 payload: the native radix
+    sort from NATIVE_SORT_MIN keys, numpy's stable argsort below. As in the
+    reference, the native sort works in place on the arrays when they
+    already are contiguous uint64 / int64. Returns (keys, payload)
+    sorted."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    payload = np.ascontiguousarray(payload, dtype=np.int64)
+    if len(keys) < NATIVE_SORT_MIN:
+        order = np.argsort(keys, kind="stable")
+        return keys[order], payload[order]
+    radix_lib().radix_sort_u64(
+        keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        payload.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int64(len(keys)))
+    return keys, payload

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--genome-size N] [--full-genome-size N]
                           [--diploid-genome-size N] [--seed S]
-                          [--only 7,8,9,9b,10,11]
+                          [--only 7,8,9,9b,10,11,12]
 
 Needs one CUDA GPU (it raises without one) and `nvcc`; it imports nothing
 of JAX or of the JAX package. Phases, each printed as it ends:
@@ -156,13 +156,41 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      +- 20, 0.4 % error: its longest contig covers >= 90 % of the region,
      and the sort kernel launched in friend finding and in counting
      (LaunchStages). Each subcommand's seconds and launches are printed.
+ 12. the library modules on the card (phase_library), each plain torch
+     on the device but for Ultra's friend sort and the ulinks chain's
+     sorts (the Hopper radix sort): (a) ops/affine at bench.py's DP shape
+     (16,384 x 100 x 140) at band 16 on dp_problems (ragged, rows with no
+     in-band path): the card == the CPU (cost, t_end), the numpy oracle
+     on 64 rows; (b) align/mxu_scan: 1,024 reads of 100 bp with 0-3
+     substitutions, both strands, ragged, on a 1 Mb target, each found at
+     its planted place by imperfect_lookup and, when exact, as the one hit
+     of perfect_lookup; match_counts == an integer count on 64 reads; 256
+     reads of 300 bp on 200 kb (counts above 256): match_counts == an
+     integer count, both lookups card == CPU; times and peak memory
+     printed; (c) graph/ulinks on repeat_genome(1 Mb): count
+     and build_unipaths of error-free 100 bp tiles on the card, path_reads
+     of 40x jump pairs of 3000 +- 300, build_ulink_graph (>= 2**14 keys
+     through the native radix sort, native/radix_sort.cpp) and the
+     neighbourhoods of the CN=1 seeds; at 200 kb the whole chain on the
+     card == on the CPU byte for byte; (d) long/ultra: the reference's
+     done-criterion (tests/test_ultra.py: 15x CLR of mean 5 kb at 15 %
+     error, 3 rounds, LongProto on 250 bp tiles: clean 24-mers > 0.70, a
+     total within 0.7-1.5 x the genome, 100-mers covered > 0.80) at 60 kb
+     (200 kb took the whole smoke past 1,000 s; scripts/ultra_criterion.py
+     runs it at any size), its seconds split into friend sort, hit
+     selection, problem build, DP forward, traceback and consensus; at 20
+     kb with 2 rounds the card == the CPU byte for byte. The plain
+     programs' kernel launches and device time come from torch.profiler
+     (kernel_rows), which must record some. Each part prints its seconds.
 
 With --only, phases 1-6 and the listed ones run (a rehearsal); without
 it, every phase. Each phase prints its seconds. Any failed check raises,
 so the exit code is not 0. The line before the last is the kernel record {"kernels":
 [...]}, whose `launches` are each kernel's launches in the pipeline
-phases 7, 8, 9 (the card's run), 9b (the card's run) and 10 and the tools
-phase 11, each counted from 0 just before its phase, and whose
+phases 7, 8, 9 (the card's run), 9b (the card's run) and 10, the tools
+phase 11 and the library phase 12 (the radix sort in ulinks' chain and in
+Ultra's friend finding), each counted from 0 just before its phase, and
+whose
 `bound_ms` is the least time of the
 timed call: its bytes (for the DP kernels, those its data needs:
 dp_terms) over 3.35 TB/s against its integer operations (BP_OPS_PER_ROW
@@ -894,7 +922,7 @@ def phase_banded_general(seed: int, int_rate: float, chain: dict):
         if timed:
             # the plain version loops over Lq rows in Python: few reps at
             # the medoid's thousands of rows
-            reps = 2 if kind == "medoid" else TIMING_REPS
+            reps = 1 if kind == "medoid" else TIMING_REPS
             turns = [median_ms(plain, reps), device_ms(kernel),
                      median_ms(plain, reps), device_ms(kernel)]
             bound, by, terms = general_bound(q, ql, t, off, band, int_rate,
@@ -2184,8 +2212,8 @@ def phase_tools(codes: np.ndarray, spectrum: torch.Tensor, seed: int):
 class StageTimer:
     """Host wall time of calls to module attributes, by the pipeline stage
     of the calling thread: {(stage, "module.attr"): [seconds, calls]}.
-    The timed functions return host arrays, so their time includes the
-    card's."""
+    Each call ends with torch.cuda.synchronize(), so a function that
+    returns device tensors is timed with its kernels."""
 
     def __init__(self, targets):
         import threading
@@ -2210,6 +2238,7 @@ class StageTimer:
                 try:
                     return _fn(*a, **kw)
                 finally:
+                    torch.cuda.synchronize()
                     dt = time.perf_counter() - t0
                     key = (launches.current_stage(), _name)
                     with self._lock:
@@ -2238,7 +2267,7 @@ LONG_READ_TIMED = (("asm.longread", "LongReadIndex"),
 # the plain version loops over its thousands of rows in Python; the
 # largest DIPLOID_TIMED_GENERAL of them are timed
 DIPLOID_KEEP_PER_STAGE = 8
-DIPLOID_TIMED_GENERAL = 4
+DIPLOID_TIMED_GENERAL = 2
 
 
 def phase_diploid(genome_size: int, capture: DPCapture):
@@ -2368,6 +2397,474 @@ def phase_dp_diploid(capture: DPCapture, int_rate: float, chain: dict):
     return max_err, bp, general
 
 
+# ---- phase 12: the library modules (ops/affine, align/mxu_scan,
+# graph/ulinks with native/radix_sort.cpp, long/ultra) ----
+AFFINE_SHAPE = (16_384, 100, 140, 16)   # bench.py's DP shape (B, Lq, Lt), band
+AFFINE_ORACLE_ROWS = 64
+MXU_TARGET, MXU_READS, MXU_LEN = 1_000_000, 1024, 100
+MXU_LONG = (200_000, 256, 300)          # target, reads, L: counts pass 256
+MXU_COUNTED = 64
+ULINKS_K, ULINKS_TILE, ULINKS_STEP = 24, 100, 10
+ULINKS_COVERAGE, ULINKS_INSERT, ULINKS_SD = 40.0, 3000, 300
+ULINKS_GENOME, ULINKS_CMP_GENOME = 1_000_000, 200_000
+ULINKS_MAX_SEP = 10_000
+ULTRA_CMP_GENOME, ULTRA_CRITERION_GENOME = 20_000, 60_000
+# the reference's tests/test_ultra.py criterion
+ULTRA_MIN_CLEAN, ULTRA_TOTAL, ULTRA_MIN_COVERED = 0.70, (0.7, 1.5), 0.80
+ULTRA_TIMED = (("long.ultra", "friend_hits"), ("long.ultra", "_select_hits"),
+               ("long.ultra", "_build_problems"),
+               ("long.ultra", "_votes_forward"),
+               ("long.ultra", "_votes_traceback"),
+               ("long.ultra", "_consensus"))
+
+
+# idle seconds inside the profiler's window on either side of the
+# profiled call: late in a whole smoke, without them, the profiler
+# recorded no kernel of a 0.1 s call and lost some of a longer one's;
+# with them it recorded all
+PROFILE_MARGIN_S = 0.5
+
+
+def kernel_rows(fn, what: str):
+    """(fn(), kernel launches, their summed device ms): fn() run once under
+    torch.profiler recording the card's activity only, PROFILE_MARGIN_S
+    idle on either side, its kernel rows (device_type CUDA, copies and
+    sets left out). Raises when the profiler recorded no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    n = sum(e.count for e in rows)
+    check(n > 0, f"{what}: torch.profiler recorded no kernel")
+    return out, n, sum(e.self_device_time_total for e in rows) / 1e3
+
+
+def peak_mib(fn):
+    """(fn(), the peak device memory it allocated, MiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def lib_affine(seed: int):
+    """(a) ops/affine at bench.py's DP shape, band 16 (dp_problems: ragged
+    lengths, offsets with no in-band path): the card == the CPU (cost and
+    t_end), the numpy oracle on AFFINE_ORACLE_ROWS rows."""
+    from allpathslg_tpu_torch.ops import affine
+
+    B, Lq, Lt, band = AFFINE_SHAPE
+    arrays = dp_problems(np.random.default_rng(seed + 120), B, Lq, Lt, band)
+    cpu = [torch.from_numpy(a) for a in arrays]
+    card = [a.to("cuda") for a in cpu]
+
+    def run():
+        return affine.affine_banded_align(*card, band=band)
+
+    (cost, t_end), n_kern, dev_ms = kernel_rows(run, "affine")
+    t0 = time.perf_counter()
+    want = affine.affine_banded_align(*cpu, band=band)
+    cpu_s = time.perf_counter() - t0
+    check(torch.equal(cost.cpu(), want[0]) and torch.equal(t_end.cpu(),
+                                                           want[1]),
+          "affine: the card's cost / t_end != the CPU's")
+    no_path = np.nonzero(want[0].numpy() == affine.BIG)[0]
+    check(len(no_path) > 0 and (want[1].numpy()[no_path] == -1).all(),
+          "affine: no row without an in-band path, or its t_end != -1")
+    q, ql, t, tl, off = arrays
+    rows = np.concatenate([no_path[:8], np.arange(AFFINE_ORACLE_ROWS - 8)])
+    for r in rows:
+        oc, _ = affine.np_affine_oracle(q[r, :ql[r]], t[r, :tl[r]],
+                                        int(off[r]), band)
+        check(int(want[0][r]) == oc, f"affine: row {r} cost "
+              f"{int(want[0][r])} != the oracle's {oc}")
+    wall = median_ms(run)
+    say(f"[lib] affine {B} x {Lq} x {Lt} band {band}: card == CPU "
+        f"(cost, t_end), {len(no_path)} rows without an in-band path, "
+        f"oracle == on {len(rows)} rows; card {wall:.3f} ms a call "
+        f"(median_ms), {n_kern} kernel launches, {dev_ms:.3f} ms of "
+        f"them on the device (torch.profiler); CPU {cpu_s:.2f} s")
+
+
+def planted_reads(rng, target: np.ndarray, n: int, L: int):
+    """n reads of L bp planted on `target` with 0-3 substitutions, half
+    reverse-complemented, lengths ragged within the last fifth (pad 4):
+    (reads, lengths, starts, is_rc, n_subs)."""
+    reads = np.full((n, L), 4, np.uint8)
+    lengths = rng.integers(L - L // 5, L + 1, n).astype(np.int32)
+    lengths[: n // 8] = L
+    starts = rng.integers(0, len(target) - L, n)
+    is_rc = rng.random(n) < 0.5
+    n_subs = rng.integers(0, 4, n)
+    for i in range(n):
+        seg = target[starts[i]:starts[i] + lengths[i]].copy()
+        pp = rng.choice(len(seg), n_subs[i], replace=False)
+        seg[pp] = (seg[pp] + rng.integers(1, 4, len(pp))) % 4
+        reads[i, :lengths[i]] = (3 - seg[::-1]) if is_rc[i] else seg
+    return reads, lengths, starts, is_rc, n_subs
+
+
+def lib_mxu(seed: int):
+    """(b) align/mxu_scan: MXU_READS reads of MXU_LEN bp on a MXU_TARGET
+    bp target, each placed at its planted offset and strand with its
+    substitutions counted; match_counts == an integer count on
+    MXU_COUNTED reads; at MXU_LONG (counts above 256) the card == the
+    CPU for both lookups."""
+    from allpathslg_tpu_torch.align import mxu_scan
+    from allpathslg_tpu_torch.eval import sim
+
+    rng = np.random.default_rng(seed + 121)
+    target = sim.random_genome(MXU_TARGET, seed=seed + 122)
+    reads, lengths, starts, is_rc, n_subs = planted_reads(
+        rng, target, MXU_READS, MXU_LEN)
+    tc, rc_, lc = (torch.from_numpy(a).to("cuda")
+                   for a in (target, reads, lengths))
+    (pos, urc, mism), n_kern, dev_ms = kernel_rows(
+        lambda: mxu_scan.imperfect_lookup(tc, rc_, lc), "mxu_scan")
+    check(np.array_equal(pos.cpu().numpy(), starts)
+          and np.array_equal(urc.cpu().numpy(), is_rc)
+          and np.array_equal(mism.cpu().numpy(), n_subs),
+          "mxu_scan: imperfect_lookup missed a planted read")
+    ppos, prc, nh = (x.cpu().numpy()
+                     for x in mxu_scan.perfect_lookup(tc, rc_, lc))
+    exact = n_subs == 0
+    check(np.array_equal(nh, exact.astype(np.int32))
+          and np.array_equal(ppos[exact, 0], starts[exact])
+          and np.array_equal(prc[exact, 0], is_rc[exact])
+          and (ppos[:, 1:] == -1).all(),
+          "mxu_scan: perfect_lookup's hits != the planted exact reads")
+    mc = mxu_scan.match_counts(tc, rc_[:MXU_COUNTED])
+    win = tc.unfold(0, MXU_LEN, 1)
+    for i in range(MXU_COUNTED):
+        r = rc_[i]
+        want = ((win == r) & (r < 4)).sum(dim=1, dtype=torch.int32)
+        check(torch.equal(mc[i], want),
+              f"mxu_scan: match_counts of read {i} != the integer count")
+    del mc, win
+    ms = {name: median_ms(lambda f=f: f(tc, rc_, lc), reps=5)
+          for name, f in (("imperfect_lookup", mxu_scan.imperfect_lookup),
+                          ("perfect_lookup", mxu_scan.perfect_lookup))}
+    ms["match_counts"] = median_ms(lambda: mxu_scan.match_counts(tc, rc_),
+                                   reps=5)
+    mib = {name: peak_mib(lambda f=f: f(tc, rc_, lc))[1]
+           for name, f in (("imperfect_lookup", mxu_scan.imperfect_lookup),
+                           ("perfect_lookup", mxu_scan.perfect_lookup))}
+    say(f"[lib] mxu_scan {MXU_READS} reads of {MXU_LEN} bp (0-3 "
+        f"substitutions, both strands, ragged) on {MXU_TARGET} bp: every "
+        f"read at its planted place, {int(exact.sum())} exact reads each "
+        f"one perfect hit; match_counts == integer count on {MXU_COUNTED} "
+        f"reads; ms (median_ms) {show_terms(ms)}; peak MiB "
+        f"{show_terms(mib)}; imperfect_lookup {n_kern} kernel launches, "
+        f"{dev_ms:.3f} ms of them on the device")
+    del tc, rc_, lc
+    G, n, L = MXU_LONG
+    target = sim.random_genome(G, seed=seed + 123)
+    reads, lengths, *_ = planted_reads(rng, target, n, L)
+    cpu = [torch.from_numpy(a) for a in (target, reads, lengths)]
+    card = [a.to("cuda") for a in cpu]
+    mc = mxu_scan.match_counts(*card[:2])
+    win = card[0].unfold(0, L, 1)
+    for i in range(n):
+        r = card[1][i]
+        check(torch.equal(mc[i], ((win == r) & (r < 4)).sum(
+            dim=1, dtype=torch.int32)),
+              f"mxu_scan: match_counts at L = {L}, read {i} != the integer "
+              f"count")
+    top = int(mc.max())
+    check(top == L, f"mxu_scan: the best count at L = {L} is {top}")
+    for fn in (mxu_scan.imperfect_lookup, mxu_scan.perfect_lookup):
+        for g, w in zip(fn(*card), fn(*cpu)):
+            check(torch.equal(g.cpu(), w),
+                  f"mxu_scan: {fn.__name__} at L = {L}: card != CPU")
+    say(f"[lib] mxu_scan {n} reads of {L} bp on {G} bp: counts up to "
+        f"{top}, {int((mc > 256).sum())} above 256; match_counts == the "
+        f"integer count; imperfect_lookup and perfect_lookup: card == CPU")
+
+
+def ulinks_chain(genome: np.ndarray, device: str, seed: int):
+    """Unipaths from error-free tiles of `genome` (count, build_unipaths),
+    read paths of ULINKS_COVERAGE x jump pairs of ULINKS_INSERT +-
+    ULINKS_SD, the link graph and the neighbourhoods of the CN=1 seeds,
+    on `device`: (unipaths, read paths, link graph, seeds,
+    neighbourhoods, {step: s}, link keys sorted)."""
+    from allpathslg_tpu_torch.eval import sim
+    from allpathslg_tpu_torch.graph import coverage, pathsdb, ulinks, unipath
+    from allpathslg_tpu_torch.kmer import count
+
+    secs = {}
+    t = [time.perf_counter()]
+
+    def lap(step):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs[step] = now - t[0]
+        t[0] = now
+
+    starts = np.arange(0, len(genome) - ULINKS_TILE + 1, ULINKS_STEP)
+    tiles = genome[starts[:, None] + np.arange(ULINKS_TILE)]
+    ck = count.trim_to_host(count.count_reads(
+        torch.from_numpy(tiles).to(device), ULINKS_K))
+    lap("count")
+    ups, _, pl = unipath.build_unipaths(
+        ck.words, ULINKS_K, min_count=1, counts=ck.counts, with_graph=True,
+        with_placement=True, device=device)
+    lap("build_unipaths")
+    jb, pairs, _ = sim.simulate_paired_reads(
+        genome, coverage=ULINKS_COVERAGE, read_len=100,
+        insert_mean=ULINKS_INSERT, insert_sd=ULINKS_SD, error_rate=0.0,
+        seed=seed)
+    t[0] = time.perf_counter()
+    rp = pathsdb.path_reads(pl, np.asarray(jb.codes))
+    lap("path_reads")
+    keys = []
+    orig = ulinks.sort_u64_with_payload
+
+    def counted(k, p):
+        keys.append(len(k))
+        return orig(k, p)
+
+    ulinks.sort_u64_with_payload = counted
+    try:
+        lg = ulinks.build_ulink_graph(rp, np.asarray(pairs.pairs),
+                                      ups.kmer_counts, ULINKS_K,
+                                      ULINKS_INSERT, ULINKS_SD)
+    finally:
+        ulinks.sort_u64_with_payload = orig
+    lap("build_ulink_graph")
+    cn, _ = coverage.copy_numbers(ups)
+    seeds = coverage.select_seeds(ups, cn)
+    nh = ulinks.neighborhoods(lg, seeds, max_sep=ULINKS_MAX_SEP)
+    lap("neighborhoods")
+    return ups, rp, lg, seeds, nh, secs, sum(keys)
+
+
+def lib_ulinks(seed: int) -> int:
+    """(c) graph/ulinks on repeat_genome(ULINKS_GENOME) on the card: at
+    least 2**14 link keys through the native radix sort, links of >= 2
+    pairs, every CN=1 seed in its own neighbourhood; at ULINKS_CMP_GENOME
+    the card == the CPU byte for byte. Returns the sort kernel's
+    launches."""
+    from allpathslg_tpu_torch.native import build as native_build
+    from allpathslg_tpu_torch.ops.cuda import launches
+
+    launches.reset()
+    ups, rp, lg, seeds, nh, secs, n_keys = ulinks_chain(
+        repeat_genome(ULINKS_GENOME, seed + 124), "cuda", seed + 125)
+    n_sort = launches.count("radix_sort")
+    check(n_sort > 0, "ulinks: the sort kernel never launched")
+    check(n_keys >= native_build.NATIVE_SORT_MIN, f"ulinks: {n_keys} link "
+          f"keys < {native_build.NATIVE_SORT_MIN}: the native sort never ran")
+    check(lg.n_edges > 0 and (lg.n_pairs >= 2).all() and (lg.a != lg.b).all(),
+          f"ulinks: {lg.n_edges} links, or one of < 2 pairs or a self link")
+    check(len(seeds) > 0 and all(s in h for s, h in zip(seeds, nh))
+          and max(len(h) for h in nh) >= 2,
+          "ulinks: a seed outside its neighbourhood, or none linked")
+    say(f"[lib] ulinks {ULINKS_GENOME} bp repeat genome: {ups.n} unipaths, "
+        f"{rp.n_reads} jump reads pathed, {n_keys} link keys through the "
+        f"native sort, {lg.n_edges} links, {len(seeds)} CN=1 seeds, "
+        f"neighbourhood sizes {min(len(h) for h in nh)}-"
+        f"{max(len(h) for h in nh)}; s {show_terms(secs)}; sort kernel "
+        f"launches {n_sort}")
+    g = repeat_genome(ULINKS_CMP_GENOME, seed + 126)
+    got = ulinks_chain(g, "cuda", seed + 127)
+    want = ulinks_chain(g, "cpu", seed + 127)
+    for name, fields, x, y in (
+            ("unipaths", ("bases", "offsets", "kmer_counts", "mean_cov"),
+             got[0], want[0]),
+            ("read paths", ("offsets", "uid", "fwd", "enter", "leave", "pos"),
+             got[1], want[1]),
+            ("links", ("a", "fla", "b", "flb", "n_pairs", "sep", "dev"),
+             got[2], want[2])):
+        for f in fields:
+            a, b = getattr(x, f), getattr(y, f)
+            check(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                  f"ulinks at {ULINKS_CMP_GENOME} bp: {name}.{f} card != CPU")
+    check(np.array_equal(got[3], want[3]) and len(got[4]) == len(want[4])
+          and all(np.array_equal(a, b) for a, b in zip(got[4], want[4])),
+          f"ulinks at {ULINKS_CMP_GENOME} bp: seeds or neighbourhoods differ")
+    say(f"[lib] ulinks {ULINKS_CMP_GENOME} bp: card == CPU byte for byte "
+        f"({got[0].n} unipaths, {got[2].n_edges} links, {got[6]} keys)")
+    return n_sort
+
+
+def kmer_set(g: np.ndarray, K: int) -> set:
+    """Every K-mer of g and its reverse complement, as bytes."""
+    out = set()
+    for i in range(len(g) - K + 1):
+        w = g[i:i + K]
+        out.add(w.tobytes())
+        out.add((3 - w[::-1]).astype(np.uint8).tobytes())
+    return out
+
+
+def clean_frac(reads, gset, K: int = 24, stride: int = 7) -> float:
+    """tests/test_ultra.py's clean 24-mer fraction."""
+    tot = hit = 0
+    for r in reads:
+        for i in range(0, len(r) - K + 1, stride):
+            tot += 1
+            hit += r[i:i + K].tobytes() in gset
+    return hit / max(tot, 1)
+
+
+def tile_assembly(g: np.ndarray, reads, assemble):
+    """tests/test_ultra.py's assembly of corrected reads: 250 bp tiles
+    every 200 bp (those of >= 100 bp) through assemble(codes) -> contig
+    sequences. Returns (tiles, contig lengths longest first, the share of
+    g's 100-mers probed every 200 bp found in the contigs)."""
+    tiles = [r[s:s + 250] for r in reads
+             for s in range(0, max(len(r) - 250 + 1, 1), 200)
+             if len(r[s:s + 250]) >= 100]
+    codes = np.full((len(tiles), 250), 4, np.uint8)
+    for i, t in enumerate(tiles):
+        codes[i, :len(t)] = t
+    seqs = assemble(codes)
+    lens = sorted((len(s) for s in seqs), reverse=True)
+    cset = set()
+    for s in seqs:
+        s = np.asarray(s, np.uint8)
+        for i in range(len(s) - 100 + 1):
+            cset.add(s[i:i + 100].tobytes())
+            cset.add((3 - s[i:i + 100][::-1]).astype(np.uint8).tobytes())
+    probes = range(0, len(g) - 100 + 1, 200)
+    covered = sum(g[i:i + 100].tobytes() in cset for i in probes) / len(
+        probes)
+    return len(tiles), lens, covered
+
+
+def ultra_criterion(timer: StageTimer) -> dict:
+    """tests/test_ultra.py's done-criterion on the card at
+    ULTRA_CRITERION_GENOME: 15x CLR reads (mean 5 kb, 15 % error), 3
+    rounds of Ultra, then LongProto on 250 bp tiles: the clean 24-mer
+    fraction, the assembly's total and its 100-mer coverage, each held to
+    the test's limit. Returns the timer's totals of the Ultra run."""
+    from allpathslg_tpu_torch.eval import sim
+    from allpathslg_tpu_torch.long import longproto, ultra
+
+    G = ULTRA_CRITERION_GENOME
+    g = sim.random_genome(G, seed=13)
+    reads, _, _ = sim.simulate_long_reads(g, coverage=15, mean_len=5000,
+                                          error_rate=0.15, seed=17)
+    t0 = time.perf_counter()
+    cor, metrics = ultra.correct_long_reads(
+        reads, ultra.UltraConfig(rounds=3), device="cuda")
+    ultra_s = time.perf_counter() - t0
+    totals = {name.split(".")[-1]: tot
+              for (_, name), tot in timer.totals.items()}
+    gset = kmer_set(g, 24)
+    before, clean = clean_frac(reads, gset), clean_frac(cor, gset)
+    t0 = time.perf_counter()
+    n_tiles, lens, covered = tile_assembly(
+        g, cor, lambda codes: longproto.long_proto(
+            codes, longproto.LongProtoConfig(min_kmer_count=3,
+                                             correction_rounds=0),
+            device="cuda").contigs.seqs)
+    lp_s = time.perf_counter() - t0
+    lo, hi = ULTRA_TOTAL
+    say(f"[lib] ultra {G} bp: {len(reads)} CLR reads "
+        f"({sum(len(r) for r in reads)} bp), clean 24-mers {before:.4f} -> "
+        f"{clean:.4f}; {metrics}; Ultra {ultra_s:.1f} s (s: "
+        f"{show_terms({k: v[0] for k, v in totals.items()})}); LongProto on "
+        f"{n_tiles} tiles and the 100-mer probes {lp_s:.1f} s: total "
+        f"{sum(lens)} bp in {len(lens)} contigs (longest "
+        f"{lens[0] if lens else 0}), 100-mers covered {covered:.4f}")
+    check(clean > ULTRA_MIN_CLEAN, f"ultra {G}: clean fraction {clean}")
+    check(lo * G < sum(lens) < hi * G, f"ultra {G}: total {sum(lens)}")
+    check(covered > ULTRA_MIN_COVERED, f"ultra {G}: covered {covered}")
+    return totals
+
+
+def lib_ultra() -> int:
+    """(d) long/ultra on the card: the reference's done-criterion at
+    ULTRA_CRITERION_GENOME, split into friend sort, hit selection, problem
+    build, DP forward, traceback and consensus (StageTimer); at
+    ULTRA_CMP_GENOME with 2 rounds the card == the CPU byte for byte, and
+    the first DP chunk of that run replayed once under torch.profiler for
+    its kernel launches and device time. Returns the sort kernel's
+    launches in the criterion run."""
+    from allpathslg_tpu_torch.eval import sim
+    from allpathslg_tpu_torch.long import ultra
+    from allpathslg_tpu_torch.ops.cuda import launches
+
+    timer = StageTimer(ULTRA_TIMED)
+    timer.install()
+    launches.reset()
+    try:
+        with LaunchStages((("long.ultra", "friend_hits", "friends"),)):
+            totals = ultra_criterion(timer)
+    finally:
+        timer.remove()
+    by = launches.by_stage()
+    n_sort = sum(k.get("radix_sort", 0) for k in by.values())
+    check(by.get("friends", {}).get("radix_sort", 0) > 0,
+          "ultra: the sort kernel never launched in friend_hits")
+    g = sim.random_genome(ULTRA_CMP_GENOME, seed=3)
+    reads, _, _ = sim.simulate_long_reads(g, coverage=15, mean_len=4000,
+                                          error_rate=0.15, seed=7)
+    cfg = ultra.UltraConfig(rounds=2)
+    chunks = []
+    dp = ultra._banded_votes_kernel
+
+    def keep_first(*a, **kw):
+        if not chunks:
+            chunks.append((a, kw))
+        return dp(*a, **kw)
+
+    ultra._banded_votes_kernel = keep_first
+    try:
+        t0 = time.perf_counter()
+        got = ultra.correct_long_reads(reads, cfg, device="cuda")
+        card_s = time.perf_counter() - t0
+    finally:
+        ultra._banded_votes_kernel = dp
+    t0 = time.perf_counter()
+    want = ultra.correct_long_reads(reads, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(got[1] == want[1] and len(got[0]) == len(want[0])
+          and all(a.tobytes() == b.tobytes()
+                  for a, b in zip(got[0], want[0])),
+          f"ultra at {ULTRA_CMP_GENOME} bp: card != CPU")
+    a, kw = chunks[0]
+    _, n_kern, dev_ms = kernel_rows(lambda: dp(*a, **kw), "ultra DP chunk")
+    (fwd_s, n_chunks), (tb_s, _) = (totals["_votes_forward"],
+                                    totals["_votes_traceback"])
+    say(f"[lib] ultra {ULTRA_CMP_GENOME} bp, 2 rounds: card == CPU byte for "
+        f"byte ({got[1]}); card {card_s:.1f} s, CPU {cpu_s:.1f} s; the DP "
+        f"of one chunk ({a[0].shape[0]} problems, {kw['Lt']} x {kw['Lq']}, "
+        f"band {kw['band']}): {n_kern} kernel launches, {dev_ms:.1f} ms of "
+        f"them on the device; the criterion run's {n_chunks} chunks "
+        f"{(fwd_s + tb_s) / n_chunks * 1e3:.1f} ms each (forward + "
+        f"traceback, synchronised); sort kernel launches in the criterion "
+        f"run {n_sort}")
+    return n_sort
+
+
+def phase_library(seed: int) -> dict:
+    """Phase 12: the library modules on the card, (a) affine, (b)
+    mxu_scan, (c) ulinks and (d) Ultra, each part's seconds printed.
+    Returns the sort kernel's launches."""
+    n_sort = 0
+    for part, run in (("affine", lambda: lib_affine(seed)),
+                      ("mxu_scan", lambda: lib_mxu(seed)),
+                      ("ulinks", lambda: lib_ulinks(seed)),
+                      ("ultra", lib_ultra)):
+        t0 = time.perf_counter()
+        n_sort += run() or 0
+        say(f"[lib] {part}: {time.perf_counter() - t0:.1f} s")
+    return {"radix_sort": n_sort}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genome-size", type=int, default=200_000,
@@ -2378,9 +2875,9 @@ def main(argv=None) -> int:
                     help="haplotype of the diploid run_full phase (10)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
-                    help="run phases 1-6 and only these of 7, 8, 9, 9b, 10 "
-                         "and 11 (comma-separated), to rehearse them; the "
-                         "default runs every phase")
+                    help="run phases 1-6 and only these of 7, 8, 9, 9b, 10, "
+                         "11 and 12 (comma-separated), to rehearse them; "
+                         "the default runs every phase")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
 
@@ -2451,6 +2948,9 @@ def main(argv=None) -> int:
     if wanted("11"):
         add(phase_tools(codes, spectrum, args.seed))
         done("11 tools CLI")
+    if wanted("12"):
+        add(phase_library(args.seed))
+        done("12 library modules")
     bp_record["max_abs_err"] = max(bp_record["max_abs_err"],
                                    set_a_record.pop("max_abs_err"),
                                    err10["banded_bp"])

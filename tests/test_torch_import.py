@@ -15,6 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
     "allpathslg_tpu_torch",
     "allpathslg_tpu_torch.align.lookup",
+    "allpathslg_tpu_torch.align.mxu_scan",
     "allpathslg_tpu_torch.align.packalign",
     "allpathslg_tpu_torch.asm.amb",
     "allpathslg_tpu_torch.asm.assisted",
@@ -39,6 +40,7 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.graph.coverage",
     "allpathslg_tpu_torch.graph.digraph",
     "allpathslg_tpu_torch.graph.pathsdb",
+    "allpathslg_tpu_torch.graph.ulinks",
     "allpathslg_tpu_torch.graph.unipath",
     "allpathslg_tpu_torch.io.efasta",
     "allpathslg_tpu_torch.io.fasta",
@@ -53,8 +55,10 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.long.friends",
     "allpathslg_tpu_torch.long.longproto",
     "allpathslg_tpu_torch.long.supported",
+    "allpathslg_tpu_torch.long.ultra",
     "allpathslg_tpu_torch.models.flagship",
     "allpathslg_tpu_torch.native.build",
+    "allpathslg_tpu_torch.ops.affine",
     "allpathslg_tpu_torch.ops.banded",
     "allpathslg_tpu_torch.ops.cuda.banded_cuda",
     "allpathslg_tpu_torch.ops.cuda.banded_general_cuda",
@@ -155,6 +159,10 @@ def test_chip_smoke_fails_without_cuda_or_package(tmp_path, alone):
     ("graph.unipath", "build_unipaths"),
     ("long.friends", "find_friends"),
     ("long.longproto", "long_proto"),
+    ("long.ultra", "friend_hits"),
+    ("long.ultra", "_banded_votes"),
+    ("long.ultra", "correct_round"),
+    ("long.ultra", "correct_long_reads"),
 ])
 def test_entry_points_default_to_the_card(module, name):
     """The port's functions that take a device run on the card unless the
