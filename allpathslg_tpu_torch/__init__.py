@@ -22,11 +22,13 @@ Host-only numpy modules of the reference (io/, scaffold/, graph/cleanup,
 asm/localize, ...) are copies with their imports pointed at the port.
 The library modules no stage calls are ported as well: long/ultra
 (whose friend sort runs on the radix sort), graph/ulinks (with the native
-host sort native/radix_sort.cpp), ops/affine and align/mxu_scan.
+host sort native/radix_sort.cpp), ops/affine and align/mxu_scan; so is the
+multi-device mesh, parallel/* (hash-routed counting, the distributed
+sample sort, the ring scan and multi-process runs over torch.distributed),
+which `n_devices > 1` runs. The port now mirrors every module of the
+reference except these.
 
 Not ported, on purpose:
-- parallel/* (the multi-device mesh; `n_devices > 1` raises) is the
-  next slice;
 - ops/bucket_count.py, tuning.py and kernel_tuning.json: their one choice
   selects the bucketed count engine, which is off the product path
   (kernel_tuning.json picks `flat`) and slower; the port counts through

@@ -22,8 +22,8 @@ Algorithm, as in the reference:
 
 The reference has a fused and a chunked form of the chain phase with
 identical outputs; the port runs one plain-torch form with the same
-iteration counts. The mesh-sharded chain sums (parallel/ring) come with
-the multi-device slice.
+iteration counts. On a mesh, the per-chain count sums come from the
+cross-shard segmented scan (parallel/ring), as in the reference.
 """
 
 from __future__ import annotations
@@ -166,15 +166,44 @@ def _as_words(words, device) -> list:
             for w in words]
 
 
+def _chain_sums_ring(mesh, node_counts: np.ndarray,
+                     starts_np: np.ndarray) -> np.ndarray:
+    """Per-position inclusive within-chain count sums, computed
+    position-sharded over the mesh through parallel.ring: padded to a
+    shard-divisible length (padding rows are their own 1-element segments,
+    so no carry leaks), the cross-shard segmented cumsum, back to the host.
+
+    int32 on the device, as in the reference: the worst-case chain sum is
+    guarded so the scan cannot wrap where the host path's int64 cumsum
+    would not."""
+    from allpathslg_tpu_torch.parallel.ring import ring_segmented_cumsum
+
+    n_sh = mesh.size
+    T = len(node_counts)
+    Tp = -(-T // n_sh) * n_sh
+    total = int(np.asarray(node_counts, np.int64).sum())
+    if total >= 2**31:
+        raise OverflowError(
+            f"chain count sum {total} >= 2^31: int32 ring scan would wrap; "
+            "chunk the count stream or raise the EC max_freq cap")
+    vals = np.zeros(Tp, np.int32)
+    vals[:T] = node_counts
+    sts = np.ones(Tp, bool)
+    sts[:T] = starts_np
+    seg = ring_segmented_cumsum(mesh, vals, sts)
+    return _np(seg)[:T]
+
+
 def build_unipaths(table_words, K: int, min_count: int = 2, counts=None,
                    with_graph: bool = False, with_placement: bool = False,
-                   device="cuda"):
+                   mesh=None, device="cuda"):
     """Host entry point: kmer table (sorted canonical, possibly padded with
     sentinels + counts) -> unipaths with base sequences (and optionally
     the oriented unipath adjacency graph and the kmer placement).
 
     table_words: W word arrays (tensors, or uint32 numpy); counts: the
-    table's counts (tensor or numpy) or None. The work runs on `device`."""
+    table's counts (tensor or numpy) or None. The work runs on `device`;
+    with a `mesh` (parallel/mesh), the chain count sums run on it."""
     tw = _as_words(table_words, device)
     counts_f = None
     if counts is not None:
@@ -229,8 +258,16 @@ def build_unipaths(table_words, K: int, min_count: int = 2, counts=None,
     mean_cov = None
     if counts_f is not None:
         node_counts = counts_f[order_np >> 1]  # node -> its canonical kmer
-        csum = np.concatenate([[0], np.cumsum(node_counts)])
-        chain_sums = csum[chain_starts + lens] - csum[chain_starts]
+        if mesh is not None and len(node_counts):
+            # chain totals through the cross-shard segmented scan over the
+            # position-sharded chain-sorted counts; only the O(n_shards)
+            # boundary carry crosses shards. Integer-exact, so artifacts
+            # equal the 1-device path's.
+            seg = _chain_sums_ring(mesh, node_counts, starts_np)
+            chain_sums = seg[chain_starts + lens - 1]
+        else:
+            csum = np.concatenate([[0], np.cumsum(node_counts)])
+            chain_sums = csum[chain_starts + lens] - csum[chain_starts]
         mean_cov = (chain_sums / np.maximum(lens, 1)).astype(np.float32)
 
     ups = Unipaths(bases=_np(bases), offsets=seq_off,

@@ -166,7 +166,7 @@ def _radix_sort_cuda(keys: torch.Tensor, key_bits: int):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         work = _start_histogram(lib, keys, key_bits, stream)
-        launches.record(_KERNEL)
+        launches.record(_KERNEL, size=n)
         # the outputs are allocated while the histogram runs
         keys_a, keys_b = torch.empty_like(keys), torch.empty_like(keys)
         idx_a = torch.empty(n, dtype=torch.int32, device=dev)

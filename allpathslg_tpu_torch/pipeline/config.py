@@ -5,9 +5,8 @@ Replaces the reference's two-level flag system (ref: src/system/ParsedArgs.h
 overrides, SURVEY.md §5.6). The whole tree serializes into the run manifest
 for provenance, like the reference echoing its command line into logs.
 A copy of allpathslg_tpu/pipeline/config.py over the port's EC configs:
-`to_json()` is identical. Of its options, n_devices > 1 is not ported yet;
-the port's Pipeline raises NotImplementedError for it (pipeline/stages.py).
-profile_dir writes torch.profiler traces instead of jax.profiler ones.
+`to_json()` is identical. n_devices > 1 runs the counting and K-table
+stages on a mesh (parallel/*), as in the reference. profile_dir writes torch.profiler traces instead of jax.profiler ones.
 """
 
 from __future__ import annotations
@@ -54,7 +53,7 @@ class AssemblyConfig:
                                     # resume, so a wedged device leg cannot
                                     # silently eat a run (VERDICT r4 weak 8)
     n_devices: int = 1              # >1: counting + K-table stages run on a
-                                    # mesh of this many devices (not ported)
+                                    # mesh of this many devices
                                     # (hash-routed all_to_all counting +
                                     # distributed sample sort; artifacts stay
                                     # byte-identical to the 1-device run)

@@ -36,9 +36,12 @@ stays resident on it across the EC stages (dtypes/devcache).
 Diagnostics: check_mode holds validate_inputs' spectrum of the first 512
 reads against the Python oracle (eval/oracle.py); evaluation="CHEAT" adds
 the truth metrics of find_errors and unipaths; profile_dir writes a
-torch.profiler trace of each stage to `{profile_dir}/{stage}/`. Not ported
-yet (see ROADMAP.md): a multi-device mesh (n_devices > 1) raises
-NotImplementedError.
+torch.profiler trace of each stage to `{profile_dir}/{stage}/`. With
+n_devices > 1 the counting and K-table stages run on a mesh of that many
+shards on the Pipeline's device (parallel/*): validate_inputs' spectra
+and find_errors' rounds through hash-routed counting, unipaths' K table
+through the distributed sample sort and its chain sums through the ring
+scan; every artifact equals the 1-device run's.
 """
 
 from __future__ import annotations
@@ -176,29 +179,31 @@ class _StageWatchdog:
             self._thread.join(timeout=5)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to allpathslg_tpu_torch yet "
-        f"(ROADMAP.md lists the work still open); run allpathslg_tpu")
-
-
 class Pipeline:
     """Stage DAG executor with manifest-based resume (ref: make dependency
-    semantics of RunAllPathsLG), on one explicit torch device."""
+    semantics of RunAllPathsLG), on one explicit torch device (a mesh of
+    n_devices shards on it when n_devices > 1)."""
 
     def __init__(self, rd: RunDir, cfg: AssemblyConfig, log: Callable = print,
                  device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Pipeline(device={device!r}): no CUDA device")
-        if cfg.n_devices > 1:
-            raise _not_ported("n_devices > 1 (mesh-distributed counting)")
         self.rd = rd
         self.cfg = cfg
         self.log = log
         # device-resident packed read batches shared ACROSS stages: reads
         # upload once and corrected codes stay on the device
         self._read_cache = {}
+        self._mesh = None
+        if cfg.n_devices > 1:
+            # counting + K-table stages run mesh-distributed (hash-routed
+            # all_to_all counting / distributed sample sort); all other
+            # stages are unchanged and artifacts equal the 1-device run's
+            from allpathslg_tpu_torch.parallel import mesh as pmesh
+            self._mesh = pmesh.make_mesh(cfg.n_devices, self.device)
+            self.log(f"[pipeline] mesh: {cfg.n_devices} devices "
+                     f"({self._mesh.platform})")
 
     def _resident_batches(self, art: str, quals: bool = True):
         """Device-resident packed batches of artifact `art` (one upload;
@@ -221,10 +226,17 @@ class Pipeline:
         self._read_cache[art] = db
 
     def _count_streaming(self, codes, K, quals=None, **kw):
-        """Counting router (one device: kmer.count.count_reads_streaming)."""
-        return kcount.count_reads_streaming(
-            codes, K, quals, batch_size=self.cfg.batch_reads,
-            device=self.device, **kw)
+        """Counting router: 1 device -> kmer.count.count_reads_streaming;
+        mesh -> parallel.dist_count.count_reads_streaming_dist (identical
+        tables either way)."""
+        if self._mesh is None:
+            return kcount.count_reads_streaming(
+                codes, K, quals, batch_size=self.cfg.batch_reads,
+                device=self.device, **kw)
+        from allpathslg_tpu_torch.parallel import dist_count as dcount
+        return dcount.count_reads_streaming_dist(
+            self._mesh, codes, K, quals=quals,
+            batch_size=self.cfg.batch_reads, **kw)
 
     def run_stage(self, name: str, inputs_hash: str, outputs: List[str], fn):
         if self.rd.stage_done(name, inputs_hash, outputs):
@@ -437,9 +449,20 @@ class Pipeline:
                         f"injected fault in find_errors round {r}")
                 # pre-filter to the strong thresholds during the streamed
                 # merge: the raw (reads x windows) table never materializes
-                ck_acc = kcount.count_resident_streaming(
-                    db, ecfg.K, min_count=ecfg.min_strong_count,
-                    min_qsum=ecfg.min_strong_qsum)
+                if self._mesh is not None:
+                    # the mesh path counts straight from the RESIDENT
+                    # packed batches (rows split over the shards): no
+                    # read-set host round-trip per round
+                    from allpathslg_tpu_torch.parallel import \
+                        dist_count as dcount
+                    ck_acc = dcount.count_resident_streaming_dist(
+                        self._mesh, db, ecfg.K,
+                        min_count=ecfg.min_strong_count,
+                        min_qsum=ecfg.min_strong_qsum)
+                else:
+                    ck_acc = kcount.count_resident_streaming(
+                        db, ecfg.K, min_count=ecfg.min_strong_count,
+                        min_qsum=ecfg.min_strong_qsum)
                 table, n_strong = sec.strong_table(ck_acc, ecfg)
                 del ck_acc  # free the raw table before correction
                 tw_save = sec.compact_strong_table(table, int(n_strong))
@@ -628,8 +651,19 @@ class Pipeline:
 
             a = rd.load_arrays("filled_reads", mmap=True)
             t0 = time.perf_counter()
-            ck_acc = kcount.trim_to_host(self._count_streaming(
-                a["codes"], cfg.K, min_count=cfg.min_kmer_count))
+            if self._mesh is not None:
+                # K=96 table via the distributed sample sort: globally
+                # sorted shards concatenate into the table
+                from allpathslg_tpu_torch.parallel import dist_count as dcount
+                ck_acc = dcount.table_via_sample_sort(
+                    self._mesh, a["codes"], cfg.K,
+                    batch_size=cfg.batch_reads,
+                    min_count=cfg.min_kmer_count)
+            else:
+                ck_acc = kcount.count_reads_streaming(
+                    a["codes"], cfg.K, batch_size=cfg.batch_reads,
+                    min_count=cfg.min_kmer_count, device=self.device)
+            ck_acc = kcount.trim_to_host(ck_acc)
             self.log(f"  [unipaths] K={cfg.K} count: "
                      f"{time.perf_counter() - t0:.1f}s "
                      f"({int(ck_acc.n_unique)} kmers)")
@@ -637,7 +671,7 @@ class Pipeline:
             ups, graph, placement = unipath.build_unipaths(
                 ck_acc.words, cfg.K, min_count=cfg.min_kmer_count,
                 counts=ck_acc.counts, with_graph=True, with_placement=True,
-                device=self.device)
+                mesh=self._mesh, device=self.device)
             self.log(f"  [unipaths] condense: "
                      f"{time.perf_counter() - t0:.1f}s ({ups.n} unipaths)")
             # localization: path the filled reads (= insert walks) through
@@ -1154,8 +1188,10 @@ class Pipeline:
             scaffolds = ssb.read_superb(rd.file_path("assembly.superb"))
             fr = rd.load_arrays("filled_reads", mmap=True)
             acfg = aast.AssistConfig(patch_K=cfg.K_ec)
-            ck = kcount.trim_to_host(
-                self._count_streaming(fr["codes"], acfg.patch_K))
+            # one device even on a mesh, as the reference counts here
+            ck = kcount.trim_to_host(kcount.count_reads_streaming(
+                fr["codes"], acfg.patch_K, batch_size=cfg.batch_reads,
+                device=self.device))
             placements = aast.place_contigs(contigs, genome, acfg,
                                             self.device)
             # chain contigs that jump data left as singletons, then patch

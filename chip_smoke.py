@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--genome-size N] [--full-genome-size N]
                           [--diploid-genome-size N] [--seed S]
-                          [--only 7,8,9,9b,10,11,12]
+                          [--only 7,8,9,9b,10,11,12,13]
 
 Needs one CUDA GPU (it raises without one) and `nvcc`; it imports nothing
 of JAX or of the JAX package. Phases, each printed as it ends:
@@ -182,14 +182,36 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      kb with 2 rounds the card == the CPU byte for byte. The plain
      programs' kernel launches and device time come from torch.profiler
      (kernel_rows), which must record some. Each part prints its seconds.
+ 13. the mesh (parallel/*) on the card, every shard of an 8-shard mesh
+     (MESH_SHARDS) on it (phase_mesh): (a) at the flagship shape,
+     distributed_spectrum's spectrum == phase 4's with dropped 0 and the
+     n_unique summing to the distinct count; sample_sort of the 16,646,144
+     two-word keys with an int32 payload == ops/sort.sort_by_words on the
+     card once the sentinels are stripped in shard order; sample_sort on
+     the card == on a CPU mesh (plain sort) over 2**20 keys, every array;
+     ring_segmented_cumsum over 8 x 2**20 int32 (two shards without a
+     start) == segment_cumsum; each leg timed (median of
+     MESH_TIMING_REPS) beside its 1-device call; (b) phase 8's run dir
+     copied (artifacts hard-linked), the records and outputs of
+     validate_inputs, find_errors, clean_reads and unipaths dropped, those
+     stages run with n_devices=8 on the card: every file they write ==
+     phase 8's (arrays key by key) and their metrics equal, each stage's
+     seconds beside phase 8's and the all_to_all byte model
+     (last_ici_bytes); (c) two processes of 4 shards each on the card
+     over gloo (exchanges staged through host memory, multihost) hold the
+     flagship batch's spectrum against phase 4's. The sort's launches in
+     (a)'s first calls, (b) and (c) are counted, with their key counts.
 
-With --only, phases 1-6 and the listed ones run (a rehearsal); without
-it, every phase. Each phase prints its seconds. Any failed check raises,
+With --only, phases 1-6 and the listed ones run (a rehearsal; 13 runs 8
+first, whose run dir it reuses); without it, every phase. Each phase prints its seconds. Any failed check raises,
 so the exit code is not 0. The line before the last is the kernel record {"kernels":
 [...]}, whose `launches` are each kernel's launches in the pipeline
 phases 7, 8, 9 (the card's run), 9b (the card's run) and 10, the tools
-phase 11 and the library phase 12 (the radix sort in ulinks' chain and in
-Ultra's friend finding), each counted from 0 just before its phase, and
+phase 11, the library phase 12 (the radix sort in ulinks' chain and in
+Ultra's friend finding) and the mesh phase 13, each counted from 0 just
+before its phase (the sort's record adds the key-count histograms of
+phases 8 and 13 by power of two, phase8_sorts_under_2**17 and the mesh
+legs' times), and
 whose
 `bound_ms` is the least time of the
 timed call: its bytes (for the DP kernels, those its data needs:
@@ -213,6 +235,7 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -1525,10 +1548,15 @@ def phase_dp_batches(capture: DPCapture, int_rate: float,
     return bp_record, general_record
 
 
-def phase_full(genome_size: int, seed: int, capture: DPCapture):
+FULL_DIR = ROOT / "build" / "chip_smoke_full"
+
+
+def phase_full(genome_size: int, seed: int, capture: DPCapture,
+               keep: bool = False):
     """run_full on the card at the binding libraries over a repeat-bearing
     genome, with `capture` installed around it; returns each kernel's
-    launches in the run."""
+    launches in the run and the sort's key-count histogram. With `keep`
+    the run dir (FULL_DIR) stays for phase 13."""
     from allpathslg_tpu_torch.eval import stats
     from allpathslg_tpu_torch.ops.cuda import launches
     from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
@@ -1536,7 +1564,7 @@ def phase_full(genome_size: int, seed: int, capture: DPCapture):
     from allpathslg_tpu_torch.pipeline.stages import Pipeline
     from allpathslg_tpu_torch.scaffold import superb
 
-    run_dir = ROOT / "build" / "chip_smoke_full"
+    run_dir = FULL_DIR
     shutil.rmtree(run_dir, ignore_errors=True)
     rd = RunDir(str(run_dir))
     full_inputs(rd, genome_size, seed)
@@ -1555,6 +1583,7 @@ def phase_full(genome_size: int, seed: int, capture: DPCapture):
     by_stage = launches.by_stage()
     total = {k: launches.count(k) for k in ("radix_sort", "banded_bp",
                                              "banded_general")}
+    sizes = sorted_histogram(launches.size_histogram("radix_sort"))
     stages = rd.manifest["stages"]
     for stage in FULL_STAGES:
         rec = stages[stage]
@@ -1563,6 +1592,9 @@ def phase_full(genome_size: int, seed: int, capture: DPCapture):
             f"{by_stage.get(stage, {})}; {shown}")
     say(f"[full] run_full: {wall:.1f} s wall with stage_workers="
         f"{cfg.stage_workers}; launches {total}")
+    say(f"[full] sort launches by key count {sizes}: "
+        f"{below(sizes, SMALL_SORT_KEYS)} of {total['radix_sort']} under "
+        f"2**17 keys")
 
     check(total["banded_general"] > 0, "run_full never launched the "
           "general banded kernel")
@@ -1601,8 +1633,9 @@ def phase_full(genome_size: int, seed: int, capture: DPCapture):
         f"{ev['base_error_rate']} (sub {ev['sub_rate']}, indel "
         f"{ev['indel_rate']}); final.assembly.fasta and submission/*.fsa "
         f"written")
-    shutil.rmtree(run_dir, ignore_errors=True)
-    return total
+    if not keep:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return total, sizes
 
 
 # Phase 9's inputs and files, as tests/test_torch_full.py makes and
@@ -2865,6 +2898,361 @@ def phase_library(seed: int) -> dict:
     return {"radix_sort": n_sort}
 
 
+# Phase 13: the mesh (parallel/*) on the card
+MESH_SHARDS = 8
+MESH_CPU_KEYS = 1 << 20
+MESH_RING_ROWS = MESH_SHARDS << 20
+MESH_STAGES = ("validate_inputs", "find_errors", "clean_reads", "unipaths")
+MESH_TIMING_REPS = 3
+SMALL_SORT_KEYS = 1 << 17       # below this the kernel loses to torch.sort
+
+
+def sorted_histogram(hist) -> dict:
+    """{"<2**b": n} in increasing b."""
+    return {k: hist[k] for k in sorted(hist, key=lambda k: int(k[4:]))}
+
+
+def below(hist, size: int) -> int:
+    """Calls in the "<2**b" buckets wholly under `size` (a power of two)."""
+    return sum(n for k, n in hist.items() if (1 << int(k[4:])) <= size)
+
+
+class SortLaunches:
+    """The sort kernel's launches and key-count histogram over a phase's
+    counted calls, each counted from 0 just before it runs."""
+
+    def __init__(self):
+        self.n = 0
+        self.hist = {}
+
+    def add(self, n: int, hist: dict):
+        self.n += n
+        for k, v in hist.items():
+            self.hist[k] = self.hist.get(k, 0) + v
+
+    def run(self, fn):
+        from allpathslg_tpu_torch.ops.cuda import launches
+
+        launches.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        self.add(launches.count("radix_sort"),
+                 launches.size_histogram("radix_sort"))
+        return out
+
+
+def mesh_legs(codes: np.ndarray, spectrum: torch.Tensor, seed: int,
+              counter: SortLaunches) -> dict:
+    """13(a): distributed_spectrum, sample_sort and the ring scan on an
+    8-shard mesh on the card at the flagship shape, each against its
+    1-device counterpart, and sample_sort card == CPU; each leg timed
+    beside the 1-device call. Returns the times (ms)."""
+    from allpathslg_tpu_torch.kmer import bits, kmerize
+    from allpathslg_tpu_torch.models.flagship import spectrum_step
+    from allpathslg_tpu_torch.ops import segmented, sort as ops_sort
+    from allpathslg_tpu_torch.parallel import dist_count, ring
+    from allpathslg_tpu_torch.parallel import mesh as pmesh
+    from allpathslg_tpu_torch.parallel import sample_sort as ss
+
+    mesh = pmesh.make_mesh(MESH_SHARDS)
+    check(mesh.size == MESH_SHARDS and mesh.platform == "cuda",
+          f"make_mesh({MESH_SHARDS}) placed its shards on {mesh.devices}")
+    dev = mesh.home
+    codes_t = torch.from_numpy(codes).to(dev)
+    ms = {}
+
+    def spread():
+        return dist_count.distributed_spectrum(mesh, codes_t, FLAGSHIP_K)
+
+    spec, dropped, _, _, nu = counter.run(spread)
+    distinct = int(spectrum[1:].sum())
+    check(torch.equal(spec.cpu(), spectrum),
+          "distributed_spectrum on 8 shards != phase 4's spectrum")
+    check(int(dropped) == 0, f"distributed_spectrum dropped {int(dropped)}")
+    check(int(nu.sum()) == distinct,
+          f"sum of n_unique {int(nu.sum())} != {distinct} distinct kmers")
+    ms["distributed_spectrum_ms"] = median_ms(spread, MESH_TIMING_REPS)
+    ms["spectrum_step_ms"] = median_ms(
+        lambda: spectrum_step(codes_t, K=FLAGSHIP_K), MESH_TIMING_REPS)
+    say(f"[mesh] distributed_spectrum, {MESH_SHARDS} shards, "
+        f"{codes.shape[0]} x {codes.shape[1]} at K={FLAGSHIP_K}: == phase "
+        f"4's spectrum, dropped 0, n_unique per shard {nu.tolist()} (sum "
+        f"{distinct}); {ms['distributed_spectrum_ms']:.2f} ms vs "
+        f"spectrum_step on one device {ms['spectrum_step_ms']:.2f} ms")
+
+    canon, valid = kmerize.kmer_windows(codes_t, FLAGSHIP_K)
+    flat, _ = kmerize.flatten_kmers(canon, valid, FLAGSHIP_K)
+    del canon, valid
+    pay = torch.arange(flat[0].numel(), dtype=torch.int32, device=dev)
+
+    def mesh_sort():
+        return ss.sample_sort(mesh, flat, [pay])
+
+    sw, sp, n_real, n_drop = counter.run(mesh_sort)
+    ow, (op,) = ops_sort.sort_by_words(flat, [pay])
+    keep_m, keep_1 = ~bits.is_sentinel(sw), ~bits.is_sentinel(ow)
+    check(n_drop == 0, f"sample_sort dropped {n_drop}")
+    check(int(n_real.sum()) == int(keep_1.sum()),
+          "sample_sort n_real != the non-sentinel key count")
+    check(all(torch.equal(a[keep_m], b[keep_1]) for a, b in zip(sw, ow))
+          and torch.equal(sp[0][keep_m], op[keep_1]),
+          "sample_sort, sentinels stripped in shard order, != sort_by_words")
+    del sw, sp, ow, op, keep_m, keep_1
+    ms["sample_sort_ms"] = median_ms(mesh_sort, MESH_TIMING_REPS)
+    ms["sort_by_words_ms"] = median_ms(
+        lambda: ops_sort.sort_by_words(flat, [pay]), MESH_TIMING_REPS)
+    say(f"[mesh] sample_sort of {flat[0].numel()} two-word keys + int32 "
+        f"payload on {MESH_SHARDS} shards == sort_by_words (keys and "
+        f"payload, sentinels stripped), n_real {n_real.tolist()}, dropped "
+        f"0; {ms['sample_sort_ms']:.2f} ms vs sort_by_words on one device "
+        f"{ms['sort_by_words_ms']:.2f} ms")
+
+    sub = [w[:MESH_CPU_KEYS].clone() for w in flat]
+    psub = pay[:MESH_CPU_KEYS].clone()
+    del flat, pay
+    card = ss.sample_sort(mesh, sub, [psub])
+    cpu = ss.sample_sort(pmesh.make_mesh(MESH_SHARDS, device="cpu"),
+                         [w.cpu() for w in sub], [psub.cpu()])
+    check(all(torch.equal(a.cpu(), b) for a, b in
+              zip(card[0] + card[1] + [card[2]], cpu[0] + cpu[1] + [cpu[2]]))
+          and card[3] == cpu[3],
+          "sample_sort on the card != on the CPU")
+    say(f"[mesh] sample_sort of {MESH_CPU_KEYS} keys: the card == the CPU "
+        f"(plain sort), every array")
+
+    rng = np.random.default_rng(seed + 13)
+    vals = torch.from_numpy(rng.integers(0, 1000, MESH_RING_ROWS)
+                            .astype(np.int32)).to(dev)
+    starts_np = rng.random(MESH_RING_ROWS) < 1e-4
+    starts_np[3 << 20:5 << 20] = False      # shards 3 and 4 hold no start
+    starts = torch.from_numpy(starts_np).to(dev)
+
+    def ring_scan():
+        return ring.ring_segmented_cumsum(mesh, vals, starts)
+
+    got = counter.run(ring_scan)
+    check(torch.equal(got, segmented.segment_cumsum(vals, starts)),
+          "ring_segmented_cumsum != segment_cumsum")
+    ms["ring_ms"] = median_ms(ring_scan, MESH_TIMING_REPS)
+    ms["segment_cumsum_ms"] = median_ms(
+        lambda: segmented.segment_cumsum(vals, starts), MESH_TIMING_REPS)
+    say(f"[mesh] ring_segmented_cumsum of {MESH_RING_ROWS} int32 on "
+        f"{MESH_SHARDS} shards (two without a start) == segment_cumsum; "
+        f"{ms['ring_ms']:.2f} ms vs {ms['segment_cumsum_ms']:.2f} ms on one "
+        f"device")
+    return ms
+
+
+def _link_or_copy(src: str, dst: str):
+    """Hard-link a run dir's artifacts (RunDir.save_arrays replaces them by
+    rename, never in place); copy every other file, which a stage may
+    rewrite in place, with its modification time."""
+    if src.endswith(".npz") or ".arrd" + os.sep in src:
+        os.link(src, dst)
+    else:
+        shutil.copy2(src, dst)
+
+
+def _written(orig: Path, copy: Path):
+    """(copy, original) of every file of `copy` that a run in `copy`
+    wrote: no longer a hard link of its original, nor a copy with its
+    modification time. manifest.json is left out."""
+    for p in sorted(copy.rglob("*")):
+        if p.is_file() and p.name != "manifest.json":
+            q = orig / p.relative_to(copy)
+            if not q.exists() or not (
+                    p.samefile(q)
+                    or p.stat().st_mtime_ns == q.stat().st_mtime_ns):
+                yield p, q
+
+
+def _same_file(p: Path, q: Path) -> bool:
+    if not q.exists():
+        return False
+    if p.suffix == ".npz":       # zip members carry their write time
+        with np.load(p) as a, np.load(q) as b:
+            return sorted(a.files) == sorted(b.files) and all(
+                a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+                and a[k].tobytes() == b[k].tobytes() for k in a.files)
+    return p.read_bytes() == q.read_bytes()
+
+
+def mesh_stages(full_dir: Path, counter: SortLaunches) -> dict:
+    """13(b): phase 8's run dir copied (its artifacts hard-linked), the
+    records and outputs of MESH_STAGES dropped, those stages run on an
+    8-shard mesh on the card; every file they write must equal phase 8's
+    and so must their metrics. Returns {stage: seconds}."""
+    from allpathslg_tpu_torch.parallel import dist_count
+    from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
+    from allpathslg_tpu_torch.pipeline.rundir import RunDir
+    from allpathslg_tpu_torch.pipeline.stages import Pipeline
+
+    mesh_dir = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    shutil.copytree(full_dir, mesh_dir, copy_function=_link_or_copy)
+    full = RunDir(str(full_dir))
+    rd = RunDir(str(mesh_dir))
+    outputs = {s: full.manifest["stages"][s]["outputs"] for s in MESH_STAGES}
+    for stage in MESH_STAGES:
+        for out in outputs[stage]:
+            for path in (mesh_dir / out, mesh_dir / (out[:-4] + ".arrd")):
+                if path.is_dir():
+                    shutil.rmtree(path)
+                elif path.exists():
+                    path.unlink()
+        del rd.manifest["stages"][stage]
+    (mesh_dir / "manifest.json").unlink()
+    (mesh_dir / "manifest.json").write_text(json.dumps(rd.manifest))
+    logged = []
+    pipe = Pipeline(rd, AssemblyConfig.from_overrides(n_devices=MESH_SHARDS),
+                    logged.append, device="cuda")
+    check(f"[pipeline] mesh: {MESH_SHARDS} devices (cuda)" in logged,
+          f"the mesh Pipeline logged {logged[:1]}")
+    ici = {}
+    for stage in MESH_STAGES:
+        counter.run(getattr(pipe, stage))
+        if stage == "validate_inputs":
+            ici[stage] = dist_count.count_reads_streaming_dist.last_ici_bytes
+        elif stage == "find_errors":
+            ici[stage] = \
+                dist_count.count_resident_streaming_dist.last_ici_bytes
+    written = list(_written(full_dir, mesh_dir))
+    bad = [str(p.relative_to(mesh_dir)) for p, q in written
+           if not _same_file(p, q)]
+    check(not bad, f"mesh stages wrote files that differ from phase 8's: "
+          f"{bad}")
+    names = {str(p.relative_to(mesh_dir)) for p, _ in written}
+    for stage in MESH_STAGES:
+        for out in outputs[stage]:
+            check(any(n == out or n.startswith(out[:-4] + ".arrd/")
+                      for n in names), f"{stage} did not rewrite {out}")
+        check(rd.metrics(stage) == full.metrics(stage),
+              f"{stage}'s metrics on the mesh differ from phase 8's")
+    secs = {}
+    for stage in MESH_STAGES:
+        secs[stage] = rd.manifest["stages"][stage]["elapsed_s"]
+        say(f"[mesh] {stage}: {secs[stage]:.1f} s on {MESH_SHARDS} shards "
+            f"vs {full.manifest['stages'][stage]['elapsed_s']:.1f} s on one "
+            f"device in phase 8 (stage_workers 2 there); metrics equal"
+            + (f"; last all_to_all model {ici[stage]} B off a shard"
+               if stage in ici else ""))
+    say(f"[mesh] run_full's mesh-routed stages at 4.6 Mb: {len(written)} "
+        f"files written, each == phase 8's ({sorted(names)})")
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    return secs
+
+
+MESH_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+pid, port, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+from allpathslg_tpu_torch.ops.cuda import launches
+from allpathslg_tpu_torch.parallel import multihost as mh
+from allpathslg_tpu_torch.parallel.dist_count import distributed_spectrum
+mh.initialize(coordinator=f"127.0.0.1:{port}", num_processes=2,
+              process_id=pid, backend="gloo")
+mesh = mh.global_mesh(4, device="cuda")
+assert (mesh.size, mesh.rank, mesh.backend) == (8, pid, "gloo"), mesh
+codes = np.load(d + "/codes.npy")
+rows = codes.shape[0] // 2
+local = mh.host_batch_to_global(codes[pid * rows:(pid + 1) * rows], mesh)
+launches.reset()
+t0 = time.perf_counter()
+spec, dropped, _, _, nu = distributed_spectrum(mesh, local, K=24)
+torch.cuda.synchronize()
+secs = time.perf_counter() - t0
+parts = [torch.zeros_like(nu.cpu()) for _ in range(2)]
+dist.all_gather(parts, nu.cpu())
+np.savez(f"{d}/out{pid}.npz", spec=spec.cpu().numpy(),
+         nu=torch.cat(parts).numpy())
+print(json.dumps({"pid": pid, "dropped": int(dropped), "secs": secs,
+                  "launches": launches.count("radix_sort"),
+                  "sizes": launches.size_histogram("radix_sort")}),
+      flush=True)
+dist.destroy_process_group()
+"""
+
+
+def mesh_two_processes(codes: np.ndarray, spectrum: torch.Tensor,
+                       counter: SortLaunches) -> float:
+    """13(c): two processes of 4 shards each on the card over gloo (each
+    exchange staged through host memory) hold the flagship batch's spectrum
+    against phase 4's. Returns the slower process's seconds."""
+    import socket
+
+    d = ROOT / "build" / "chip_smoke_multihost"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    np.save(d / "codes.npy", codes)
+    (d / "child.py").write_text(MESH_CHILD)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen(
+        [sys.executable, str(d / "child.py"), str(pid), str(port), str(d)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+        cwd=str(ROOT), text=True) for pid in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"multihost process {pid} failed:\n"
+              f"{out[-3000:]}")
+    distinct = int(spectrum[1:].sum())
+    secs = []
+    for pid, out in enumerate(outs):
+        rec = json.loads(out.strip().splitlines()[-1])
+        got = np.load(d / f"out{pid}.npz")
+        check(rec["dropped"] == 0, f"process {pid} dropped {rec['dropped']}")
+        check(np.array_equal(got["spec"], spectrum.numpy()),
+              f"process {pid}'s spectrum != phase 4's")
+        check(int(got["nu"].sum()) == distinct,
+              f"process {pid}: n_unique sum {int(got['nu'].sum())} != "
+              f"{distinct}")
+        counter.add(rec["launches"], rec["sizes"])
+        secs.append(rec["secs"])
+        say(f"[mesh] process {pid} of 2 (4 shards on the card, gloo, "
+            f"staged through host memory): spectrum == phase 4's, n_unique "
+            f"{got['nu'].tolist()}, {rec['secs']:.2f} s, sort launches "
+            f"{rec['launches']}")
+    shutil.rmtree(d, ignore_errors=True)
+    return max(secs)
+
+
+def phase_mesh(codes: np.ndarray, spectrum: torch.Tensor, full_dir: Path,
+               seed: int) -> dict:
+    """Phase 13: (a) the mesh legs at the flagship shape, (b) run_full's
+    mesh-routed stages at 4.6 Mb against phase 8, (c) the two-process
+    spectrum. Returns the record: sort launches and key counts of the
+    counted calls, the legs' times, the stages' seconds."""
+    counter = SortLaunches()
+    t0 = time.perf_counter()
+    ms = mesh_legs(codes, spectrum, seed, counter)
+    say(f"[mesh] (a) legs: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    secs = mesh_stages(full_dir, counter)
+    say(f"[mesh] (b) stages: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    two = mesh_two_processes(codes, spectrum, counter)
+    say(f"[mesh] (c) two processes: {time.perf_counter() - t0:.1f} s")
+    check(counter.n > 0, "phase 13 launched no sort kernel")
+    hist = sorted_histogram(counter.hist)
+    say(f"[mesh] sort launches {counter.n}, by key count {hist}; "
+        f"{below(hist, SMALL_SORT_KEYS)} under 2**17 keys")
+    return {"launches": counter.n, "key_counts": hist, **ms,
+            "stage_s": secs, "two_process_s": two}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genome-size", type=int, default=200_000,
@@ -2876,8 +3264,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
                     help="run phases 1-6 and only these of 7, 8, 9, 9b, 10, "
-                         "11 and 12 (comma-separated), to rehearse them; "
-                         "the default runs every phase")
+                         "11, 12 and 13 (comma-separated; 13 runs 8 too), "
+                         "to rehearse them; the default runs every phase")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
 
@@ -2927,9 +3315,12 @@ def main(argv=None) -> int:
         done("7 contig slice, traced")
     bp_record = {"max_abs_err": 0, "library_ms": None}
     general_full = {"max_abs_err": 0}
-    if wanted("8"):
+    sizes8 = {}
+    if wanted("8") or wanted("13"):         # phase 13 reruns phase 8's stages
         capture = DPCapture()
-        add(phase_full(args.full_genome_size, args.seed, capture))
+        total8, sizes8 = phase_full(args.full_genome_size, args.seed, capture,
+                                    keep=wanted("13"))
+        add(total8)
         bp_record, general_full = phase_dp_batches(capture, int_rate, chain)
         done("8 run_full from files")
     if wanted("9"):
@@ -2951,6 +3342,18 @@ def main(argv=None) -> int:
     if wanted("12"):
         add(phase_library(args.seed))
         done("12 library modules")
+    mesh_record = {}
+    if wanted("13"):
+        mesh_record = phase_mesh(codes, spectrum, FULL_DIR, args.seed)
+        shutil.rmtree(FULL_DIR, ignore_errors=True)
+        add({"radix_sort": mesh_record["launches"]})
+        done("13 mesh")
+    record.update({
+        "phase8_key_counts": sizes8,
+        "phase8_sorts_under_2**17": below(sizes8, SMALL_SORT_KEYS),
+        "phase13_launches": mesh_record.pop("launches", 0),
+        "phase13_key_counts": mesh_record.pop("key_counts", {}),
+        **{f"mesh_{k}": v for k, v in mesh_record.items()}})
     bp_record["max_abs_err"] = max(bp_record["max_abs_err"],
                                    set_a_record.pop("max_abs_err"),
                                    err10["banded_bp"])

@@ -68,6 +68,11 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.ops.join",
     "allpathslg_tpu_torch.ops.segmented",
     "allpathslg_tpu_torch.ops.sort",
+    "allpathslg_tpu_torch.parallel.dist_count",
+    "allpathslg_tpu_torch.parallel.mesh",
+    "allpathslg_tpu_torch.parallel.multihost",
+    "allpathslg_tpu_torch.parallel.ring",
+    "allpathslg_tpu_torch.parallel.sample_sort",
     "allpathslg_tpu_torch.pipeline.config",
     "allpathslg_tpu_torch.pipeline.prepare",
     "allpathslg_tpu_torch.pipeline.run",
@@ -173,3 +178,25 @@ def test_entry_points_default_to_the_card(module, name):
     fn = getattr(importlib.import_module(f"allpathslg_tpu_torch.{module}"),
                  name)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_make_mesh_needs_a_card_unless_cpu_is_asked(device):
+    """The mesh's shards go on the card; without one, make_mesh raises
+    unless device="cpu" is given (no fallback to the CPU)."""
+    torch = pytest.importorskip("torch")
+    from allpathslg_tpu_torch.parallel import mesh as pmesh
+
+    if device == "cpu":
+        m = pmesh.make_mesh(8, device="cpu")
+        assert m.size == 8 and m.platform == "cpu"
+        assert all(d == torch.device("cpu") for d in m.devices)
+        return
+    if torch.cuda.is_available():
+        m = pmesh.make_mesh(8)
+        assert all(d.type == "cuda" for d in m.devices)
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmesh.make_mesh(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmesh.make_mesh(8, device="cuda")

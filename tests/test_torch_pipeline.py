@@ -5,9 +5,10 @@ find_errors -> clean_reads -> fill_fragments -> unipaths -> report ->
 align_frags on the same simulated genome (20 kb x 40x, batch_reads=4096,
 as tests/test_pipeline_mesh.py sizes it); every artifact (arrays, FASTA,
 EFASTA and the report text) and every stage metric must be identical.
-Also: a multi-device mesh (n_devices > 1, not ported) raises
-NotImplementedError, a CUDA pipeline without a card raises, and an
-interrupted find_errors resumes to the same artifacts.
+Also: a mesh pipeline (n_devices > 1) on the card raises without a card
+(its CPU runs are tests/test_torch_pipeline_mesh.py), a CUDA pipeline
+without a card raises, and an interrupted find_errors resumes to the same
+artifacts.
 """
 
 import numpy as np
@@ -160,9 +161,15 @@ def test_find_errors_resumes_after_fault(both, tmp_path):
     (dict(n_devices=2), None),
 ])
 def test_off_slice_options_raise(tmp_path, override, stage):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _, port = _port(tmp_path, **override)
-        getattr(port, stage)()
+    """n_devices > 1 is ported: its mesh goes on the card, so without a
+    card the Pipeline raises rather than falling back to a CPU mesh."""
+    del stage
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    rd = TRunDir(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TPipeline(rd, TConfig.from_overrides(**CFG, **override), _quiet,
+                  device="cuda")
 
 
 def test_cuda_pipeline_without_card_raises(tmp_path):
