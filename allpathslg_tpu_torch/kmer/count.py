@@ -140,6 +140,33 @@ def spectrum_reads(codes: torch.Tensor, K: int, max_freq: int = 255):
     return spectrum_from_counts(counts, max_freq), (counts > 0).sum(dtype=_I32)
 
 
+def spectrum_reads_auto(codes: torch.Tensor, K: int, max_freq: int = 255):
+    """Spectrum + n_unique via the TUNED counting engine (tuning.py
+    "count_engine"): "bucketed" routes through ops/bucket_count.py (batched
+    row sorts; falls back to the flat path on slab overflow), "flat" is
+    `spectrum_reads`. Runs on the device of `codes`; the overflow check
+    synchronises once."""
+    from allpathslg_tpu_torch import tuning
+
+    if tuning.get("count_engine") != "bucketed":
+        return spectrum_reads(codes, K, max_freq)
+    from allpathslg_tpu_torch.ops import bucket_count
+
+    flat = _kmer_flat(codes, K)
+    N, R, B, S = bucket_count.grouping_plan(int(flat[0].shape[0]))
+    words = bucket_count._pad_to(flat, N)
+    spec, nu, ok = bucket_count.spectrum_grouped(words, R, B, S, max_freq)
+    if bool(ok):
+        return spec, nu
+    return spectrum_reads(codes, K, max_freq)
+
+
+def _kmer_flat(codes: torch.Tensor, K: int) -> List[torch.Tensor]:
+    canon, valid = kmerize.kmer_windows(codes, K)
+    flat, _ = kmerize.flatten_kmers(canon, valid, K)
+    return list(flat)
+
+
 def recount_table(words, counts, qsum=None) -> CountedKmers:
     """Re-aggregate a (possibly duplicated, unsorted) kmer table: sum counts
     on equal keys and compact."""

@@ -7,6 +7,8 @@ PyTorch version on a CPU tensor). Longer keys sort by stable passes over
 two-word groups, least significant group first, composing the
 permutations; payloads follow by one gather. The reference sorts with
 `lax.sort(is_stable=True)`, so equal keys keep their input order here too.
+`sort_rows_by_words` sorts each row of [T, R] words on its own the same
+way, through the batched row sort (ops/cuda/row_sort_cuda.py).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import List, Sequence
 
 import torch
 
-from allpathslg_tpu_torch.ops.cuda import sort_cuda
+from allpathslg_tpu_torch.ops.cuda import row_sort_cuda, sort_cuda
 
 _MASK32 = 0xFFFFFFFF
 
@@ -49,6 +51,26 @@ def sort_words_perm(key_words: Sequence[torch.Tensor]):
         _, p = sort_cuda.radix_sort(key, key_bits)
         perm = p if perm is None else perm.index_select(0, p)
     return [w.index_select(0, perm) for w in key_words], perm
+
+
+def sort_rows_by_words(key_words: Sequence[torch.Tensor]):
+    """Row-wise sort_words_perm: W words int64 [T, R] -> (each row sorted
+    lexicographically, the stable permutation within the row int32)."""
+    W = len(key_words)
+    if W <= 2:
+        key, key_bits = _pack_key(list(key_words))
+        skey, perm = row_sort_cuda.row_sort(key, key_bits)
+        return _unpack_key(skey, W), perm
+    perm = None
+    for hi in range(W, 0, -2):                  # least significant group first
+        group = list(key_words[max(hi - 2, 0):hi])
+        if perm is not None:
+            group = [w.gather(1, perm) for w in group]
+        key, key_bits = _pack_key(group)
+        _, p = row_sort_cuda.row_sort(key, key_bits)
+        p = p.long()
+        perm = p if perm is None else perm.gather(1, p)
+    return [w.gather(1, perm) for w in key_words], perm.to(torch.int32)
 
 
 def sort_by_words(key_words: Sequence[torch.Tensor],

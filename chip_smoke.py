@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py [--genome-size N] [--full-genome-size N]
                           [--diploid-genome-size N] [--seed S]
-                          [--only 7,8,9,9b,10,11,12,13]
+                          [--only 7,8,9,9b,10,11,12,13,14]
 
 Needs one CUDA GPU (it raises without one) and `nvcc`; it imports nothing
 of JAX or of the JAX package. Phases, each printed as it ends:
 
   1. the card: `nvidia-smi` name and power limit, torch's device name;
-  2. build the three Hopper kernels, the radix sort (csrc/radix_sort.cu),
-     the bit-parallel banded DP (csrc/banded_bp.cu) and the general
-     banded DP (csrc/banded_general.cu), and the chain probes
+  2. build the four Hopper kernels, the radix sort (csrc/radix_sort.cu),
+     the batched row sort (csrc/row_sort.cu), the bit-parallel banded DP
+     (csrc/banded_bp.cu) and the general banded DP
+     (csrc/banded_general.cu), and the chain probes
      (csrc/chain_probe.cu), with nvcc for sm_90a, one nvcc for each,
      started together; then chain_terms: the latency of one dependent DPX
      instruction and the device time of an empty launch, which the general
@@ -24,9 +25,10 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      takes the plain version); the adversarial keys of SORT_CASES at 2**20
      keys and at 1 key (histogram kernel against its plain version, the
      passes planned, the sort), and 0 keys; then at 16,646,144, 5,046,272
-     (one count_reads batch of 65,536 x 100 bp) and 65,536 keys, the
-     passes planned, the bytes moved against the LSD floor, and median
-     times in turns of plain version, kernel and torch.sort;
+     (one count_reads batch of 65,536 x 100 bp), 65,536 keys and the
+     mesh shards' 2**19, 2**20 and 2**21 keys, the passes planned, the
+     bytes moved against the LSD floor, and median times in turns of
+     plain version, kernel and torch.sort;
   4. spectrum_step(K=24) on the same batch, against the CPU spectrum
      (kept for phase 11);
   5. bit-parallel banded-DP parity on the card: the kernel against the
@@ -202,13 +204,33 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      flagship batch's spectrum against phase 4's. The sort's launches in
      (a)'s first calls, (b) and (c) are counted, with their key counts.
 
+ 14. the count engines (phase_count_engines): (a) the batched row sort
+     against its plain version (row_sort_plain), exactly, on random 1- and
+     2-word keys with 1 % all-ones at the four shapes grouping_plan gives
+     the flagship batch (ROW_SORT_SHAPES: 127 x 131,072 tiles and 127 x
+     196,723 slabs at K=24, 55 x 131,072 and 55 x 196,625 at K=96), on
+     the flagship's own K=24 tiles, on odd rows of 1 and 3, and on rows
+     all sentinels; each timed in turns beside the plain version and
+     torch.sort(dim=1), with its byte bound; (b) spectrum_reads_auto with
+     APLG_COUNT_ENGINE=bucketed on the flagship batch: its spectrum ==
+     phase 4's, two row sorts and one sample sort launched (the bucketed
+     path, no flat fallback), max_run <= slots; count_grouped's table,
+     compacted, == count_sorted's; (c) the same tables at K=96 (6-word
+     keys); (d) count_grouped on the card == on the CPU, every array, at
+     2**20 keys: K=24 keys, 7 x 3 distinct keys (the retry) and one
+     repeated key (the flat fallback), the attempt that returned printed;
+     (e) `python -m allpathslg_tpu_torch.tune_count --dry` in a child
+     process: both engines' ms a batch and M k-mers/s on this card, and
+     no tuning file written.
+
 With --only, phases 1-6 and the listed ones run (a rehearsal; 13 runs 8
 first, whose run dir it reuses); without it, every phase. Each phase prints its seconds. Any failed check raises,
 so the exit code is not 0. The line before the last is the kernel record {"kernels":
 [...]}, whose `launches` are each kernel's launches in the pipeline
 phases 7, 8, 9 (the card's run), 9b (the card's run) and 10, the tools
 phase 11, the library phase 12 (the radix sort in ulinks' chain and in
-Ultra's friend finding) and the mesh phase 13, each counted from 0 just
+Ultra's friend finding), the mesh phase 13 and the count engines' phase
+14 ((b) and (c)), each counted from 0 just
 before its phase (the sort's record adds the key-count histograms of
 phases 8 and 13 by power of two, phase8_sorts_under_2**17 and the mesh
 legs' times), and
@@ -226,6 +248,9 @@ stages); the general kernel's are phase 6's set (1, band 96), with b8_*,
 b1_band16_*, bench_shape_* and medoid_* keys for sets 5, 6, 3 and 9,
 run_full_* lists for phase 8's batches, and long_read_* and assisted_*
 lists for phase 10's timed batches of long_read_patch and assisted. The
+row sort's ms, plain_ms, library_ms and bound_ms are those of the
+flagship's K=24 tiles (127 x 131,072), with each shape of (a) under
+`shapes` and the tuner's two engines beside them. The
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -241,6 +266,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -398,9 +424,11 @@ def phase_build():
 
     from allpathslg_tpu_torch.ops.cuda import (banded_cuda,
                                                banded_general_cuda,
-                                               chain_probe, sort_cuda)
+                                               chain_probe, row_sort_cuda,
+                                               sort_cuda)
 
-    mods = (sort_cuda, banded_cuda, banded_general_cuda, chain_probe)
+    mods = (sort_cuda, row_sort_cuda, banded_cuda, banded_general_cuda,
+            chain_probe)
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(), mods))
     for mod, (path, secs) in zip(mods, built):
@@ -488,6 +516,9 @@ def sort_err(got, want) -> int:
                int((got[1].long() - want[1].long()).abs().max()))
 
 
+MESH_SHARD_KEY_BITS = (19, 20, 21)   # phase 13's shard sorts: 2**19-2**21
+
+
 def phase_sort(codes: np.ndarray, seed: int):
     """Kernel vs plain version at the flagship shape, on adversarial keys
     and at three sizes in turns with torch.sort; returns the record."""
@@ -562,10 +593,13 @@ def phase_sort(codes: np.ndarray, seed: int):
     sizes = (("flagship 131,072 x 150 bp", key),
              ("one count_reads batch, 65,536 x 100 bp",
               batch_keys(65_536, 100, seed + 4)),
-             ("small", key[:65_536].clone()))
+             ("small", key[:65_536].clone()),
+             *((f"a mesh shard's 2**{b}", key[:1 << b].clone())
+               for b in MESH_SHARD_KEY_BITS))
     check(sizes[1][1].numel() == 5_046_272,
           f"batch key count {sizes[1][1].numel()}")
     record = {}
+    mesh_sizes = {}
     for label, k in sizes:
         m = k.numel()
         hist, n_ones = sort_cuda.digit_histogram(k, 64)
@@ -598,10 +632,13 @@ def phase_sort(codes: np.ndarray, seed: int):
             f"{sort_lsd_bytes(m, passes) / m:.0f} B/key, LSD floor "
             f"{floor_ms:.4f} ms = {100 * floor_ms / kern:.1f} % of the "
             f"kernel's time; bound (20 B/key) {bound_ms:.4f} ms")
+        timed = {"ms": kern, "plain_ms": pl, "library_ms": lib,
+                 "bound_ms": bound_ms, "bound_by": "bytes"}
         if not record:
-            record = {"ms": kern, "plain_ms": pl, "library_ms": lib,
-                      "bound_ms": bound_ms, "bound_by": "bytes"}
-    return {"max_abs_err": max_err, **record}
+            record = timed
+        elif label.startswith("a mesh shard"):
+            mesh_sizes[str(m)] = timed
+    return {"max_abs_err": max_err, **record, "mesh_shard_sizes": mesh_sizes}
 
 
 def phase_spectrum(codes: np.ndarray):
@@ -3253,6 +3290,278 @@ def phase_mesh(codes: np.ndarray, spectrum: torch.Tensor, full_dir: Path,
             "stage_s": secs, "two_process_s": two}
 
 
+# Phase 14: the count engines (ops/bucket_count on csrc/row_sort.cu)
+ROW_SORT_SHAPES = (("K=24 tiles", 127, 131_072), ("K=24 slabs", 127, 196_723),
+                   ("K=96 tiles", 55, 131_072), ("K=96 slabs", 55, 196_625))
+ROW_SORT_ODD = ((1, 99_999), (3, 12_345), (1, 1))
+GROUPED_KEYS = 1 << 20
+TUNE_TIMEOUT_S = 300
+
+
+def row_sort_bound_ms(n_keys: int) -> float:
+    """The least time of a sort of n_keys keys: 8 B of key read, 8 B of key
+    and 4 B of index written, each once, over the memory rate."""
+    return 20 * n_keys / HBM_BYTES_PER_S * 1e3
+
+
+def random_rows(rows: int, row_len: int, key_bits: int, gen) -> torch.Tensor:
+    """Random keys of key_bits bits [rows, row_len] on the card, 1 % of
+    them all-ones."""
+    from allpathslg_tpu_torch.ops.cuda import sort_cuda
+
+    shape, dev = (rows, row_len), torch.device("cuda")
+    keys = torch.randint(0, 1 << 32, shape, generator=gen, device=dev)
+    if key_bits == 64:
+        keys = (keys << 32) | torch.randint(0, 1 << 32, shape,
+                                            generator=gen, device=dev)
+    ones = torch.rand(shape, generator=gen, device=dev) < 0.01
+    return torch.where(ones, sort_cuda.all_ones(key_bits), keys)
+
+
+def row_sort_timed(keys: torch.Tensor, key_bits: int) -> dict:
+    """Kernel, plain version and torch.sort(dim=1) in turns (median_ms),
+    with the byte bound."""
+    from allpathslg_tpu_torch.ops.cuda import row_sort_cuda
+
+    flipped = keys ^ (-(1 << 63))
+
+    def plain():
+        return row_sort_cuda.row_sort_plain(keys, key_bits)
+
+    def kernel():
+        return row_sort_cuda.row_sort(keys, key_bits)
+
+    def library():
+        return torch.sort(flipped, dim=1)
+
+    t = [median_ms(f) for f in (plain, kernel, library, library, kernel,
+                                plain)]
+    return {"ms": min(t[1], t[4]), "plain_ms": min(t[0], t[5]),
+            "library_ms": min(t[2], t[3]),
+            "bound_ms": row_sort_bound_ms(keys.numel()), "bound_by": "bytes"}
+
+
+def row_sort_parity(flat) -> dict:
+    """14(a): the row sort against its plain version, exactly, and timed;
+    returns {"max_abs_err", timed record of the flagship tiles,
+    "shapes": {label: timed}}."""
+    from allpathslg_tpu_torch.ops import bucket_count
+    from allpathslg_tpu_torch.ops.cuda import row_sort_cuda
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    max_err = 0
+
+    def held(keys, key_bits, what):
+        nonlocal max_err
+        got = row_sort_cuda.row_sort(keys, key_bits)
+        want = row_sort_cuda.row_sort_plain(keys, key_bits)
+        err = sort_err(got, want)
+        check(err == 0 and torch.equal(got[0], want[0])
+              and torch.equal(got[1], want[1]), f"row sort != plain on {what}")
+        max_err = max(max_err, err)
+
+    def show(what, tm):
+        say(f"[rowsort] {what}: kernel {tm['ms']:.3f} ms, plain "
+            f"{tm['plain_ms']:.3f}, torch.sort(dim=1) {tm['library_ms']:.3f}"
+            f", bound {tm['bound_ms']:.4f} ({100 * tm['bound_ms'] / tm['ms']:.1f}"
+            f" % of the kernel's time)")
+
+    n_pad, R, _, _ = bucket_count.grouping_plan(flat[0].numel())
+    w0, w1 = bucket_count._pad_to(flat, n_pad)
+    tiles = ((w0 << 32) | w1).reshape(n_pad // R, R)
+    held(tiles, 64, "the flagship's K=24 tiles")
+    record = row_sort_timed(tiles, 64)
+    show(f"flagship K=24 tiles {n_pad // R} x {R}, == plain", record)
+    shapes = {}
+    for label, rows, row_len in ROW_SORT_SHAPES:
+        for key_bits in (32, 64):
+            keys = random_rows(rows, row_len, key_bits, gen)
+            what = f"{label} {rows} x {row_len}, {key_bits // 32} word(s)"
+            held(keys, key_bits, what)
+            shapes[f"{label} {key_bits // 32}w"] = tm = row_sort_timed(
+                keys, key_bits)
+            show(f"{what}, 1 % all-ones, == plain", tm)
+    for rows, row_len in ROW_SORT_ODD:
+        for key_bits in (32, 64):
+            held(random_rows(rows, row_len, key_bits, gen), key_bits,
+                 f"odd {rows} x {row_len}")
+    sent = random_rows(3, 5_000, 64, gen)
+    sent[0] = -1
+    sent[2] = -1
+    held(sent, 64, "rows 0 and 2 all sentinels")
+    held(torch.full((4, 5_000), -1, dtype=torch.int64, device="cuda"), 64,
+         "every row all sentinels")
+    held(torch.full((4, 5_000), 0xFFFFFFFF, dtype=torch.int64,
+                    device="cuda"), 32, "every row all sentinels, 1 word")
+    say(f"[rowsort] odd rows {ROW_SORT_ODD} and all-sentinel rows: == plain")
+    return {"max_abs_err": max_err, **record, "shapes": shapes}
+
+
+def same_table(a, b) -> bool:
+    """Two compact tables hold the same keys and counts (their padding may
+    differ in length)."""
+    n = int(a.n_unique)
+    return (n == int(b.n_unique)
+            and all(torch.equal(x[:n], y[:n]) for x, y in zip(a.words,
+                                                               b.words))
+            and torch.equal(a.counts[:n], b.counts[:n]))
+
+
+def grouped_attempt(fn):
+    """Runs count_grouped on 2-word keys through fn() and names what
+    returned, from the launches it made: each grouping attempt is 2 row
+    sorts and one sample sort; the flat fallback adds count_sorted's sort."""
+    from allpathslg_tpu_torch.ops.cuda import launches
+
+    launches.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    rows = launches.count("row_sort")
+    attempts = rows // 2
+    check(attempts >= 1 and rows == 2 * attempts,
+          f"count_grouped made {rows} row sorts")
+    return out, (f"attempt {attempts}"
+                 if launches.count("radix_sort") == attempts
+                 else f"flat fallback after {attempts} attempts")
+
+
+def count_engines(codes: np.ndarray, spectrum: torch.Tensor) -> dict:
+    """14(b) and (c), the counted main path: spectrum_reads_auto on the
+    bucketed engine and count_grouped at K=24 and K=96 against
+    count_sorted. Returns the launches of both kernels."""
+    from allpathslg_tpu_torch.kmer import count as kcount, kmerize
+    from allpathslg_tpu_torch.ops import bucket_count
+    from allpathslg_tpu_torch.ops.cuda import launches
+
+    cuda_codes = torch.from_numpy(codes).cuda()
+    with mock.patch.dict(os.environ, {"APLG_COUNT_ENGINE": "bucketed"}):
+        launches.reset()
+        spec, nu = kcount.spectrum_reads_auto(cuda_codes, FLAGSHIP_K)
+        torch.cuda.synchronize()
+    rows, flat_sorts = launches.count("row_sort"), launches.count("radix_sort")
+    check(torch.equal(spec.cpu(), spectrum) and int(nu) == int(spectrum.sum()),
+          "spectrum_reads_auto (bucketed) != phase 4's spectrum")
+    check(rows == 2 and flat_sorts == 1,
+          f"spectrum_reads_auto made {rows} row sorts and {flat_sorts} flat "
+          f"sorts: not the bucketed path alone")
+    launched = {"row_sort": rows, "radix_sort": flat_sorts}
+
+    def counted(fn):
+        launches.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        for k in launched:
+            launched[k] += launches.count(k)
+        return out
+
+    flat24 = kcount._kmer_flat(cuda_codes, FLAGSHIP_K)
+    n24 = flat24[0].numel()
+    N, R, B, S = bucket_count.grouping_plan(n24)
+    _, max_run = counted(lambda: bucket_count.group_keys(
+        bucket_count._pad_to(flat24, N), R, B, S))
+    check(int(max_run) <= S, f"max_run {int(max_run)} > slots {S}")
+    say(f"[engines] (b) spectrum_reads_auto, bucketed: {n24} keys, plan N="
+        f"{N} R={R} B={B} S={S}; ok True (max_run {int(max_run)} <= slots "
+        f"{S}); 2 row sorts + 1 sample sort, no flat fallback; spectrum == "
+        f"phase 4's, n_unique {int(nu)}")
+    for K in (FLAGSHIP_K, 96):
+        flat = flat24 if K == FLAGSHIP_K else kmerize.flatten_kmers(
+            *kmerize.kmer_windows(cuda_codes, K), K)[0]
+        got = counted(lambda: kcount.compact_table(
+            *bucket_count.count_grouped(flat)))
+        want = kcount.compact_table(*kcount.count_sorted(flat))
+        check(same_table(got, want),
+              f"count_grouped's table != count_sorted's at K={K}")
+        say(f"[engines] ({'b' if K == FLAGSHIP_K else 'c'}) K={K}: "
+            f"{flat[0].numel()} keys of {len(flat)} words; count_grouped's "
+            f"compacted table == count_sorted's ({int(got.n_unique)} "
+            f"distinct)")
+    return launched
+
+
+def grouped_card_vs_cpu(flat24):
+    """14(d): count_grouped on the card == on the CPU, every array, at
+    GROUPED_KEYS keys, with the attempt that returned."""
+    from allpathslg_tpu_torch.ops import bucket_count
+
+    rng = np.random.default_rng(14)
+    n = GROUPED_KEYS
+    small = {"tile_rows": 1024, "n_buckets": 8}   # tests/test_bucket_count.py
+    inputs = (
+        ("K=24 keys", [w[:n] for w in flat24], {}, "attempt 1"),
+        ("7 x 3 distinct keys",
+         [torch.from_numpy(rng.integers(0, 7, n)).cuda(),
+          torch.from_numpy(rng.integers(0, 3, n)).cuda()], small,
+         "attempt 2"),
+        ("one repeated key", [torch.zeros(n, dtype=torch.int64,
+                                          device="cuda")] * 2, small,
+         "flat fallback after 2 attempts"))
+    for label, words, kw, want in inputs:
+        got, attempt = grouped_attempt(
+            lambda: bucket_count.count_grouped(words, **kw))
+        cpu = bucket_count.count_grouped([w.cpu() for w in words], **kw)
+        same = (all(torch.equal(a.cpu(), b) for a, b in zip(got[0], cpu[0]))
+                and torch.equal(got[1].cpu(), cpu[1])
+                and torch.equal(got[2].cpu(), cpu[2]))
+        check(same, f"count_grouped card != CPU on {label}")
+        check(attempt == want, f"count_grouped on {label}: {attempt}, "
+              f"want {want}")
+        say(f"[engines] (d) {label}, {n} keys ({kw or 'defaults'}): card "
+            f"== CPU (words, counts, starts); returned at {attempt}")
+
+
+def tune_child() -> dict:
+    """14(e): tune_count --dry in a child process; its JSON result."""
+    user_file = ROOT / "build" / "chip_smoke_tuning.json"
+    user_file.unlink(missing_ok=True)
+    env = dict(os.environ, APLG_TUNING_FILE=str(user_file))
+    proc = subprocess.run(
+        [sys.executable, "-m", "allpathslg_tpu_torch.tune_count", "--dry"],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=TUNE_TIMEOUT_S)
+    check(proc.returncode == 0,
+          f"tune_count --dry failed:\n{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not user_file.exists() and "wrote" not in res,
+          "tune_count --dry wrote a tuning file")
+    check(res["bucketed_ms"] is not None,
+          "tune_count: the bucketed engine overflowed at the flagship shape")
+    for line in proc.stderr.strip().splitlines():
+        say(f"[tune] {line}")
+    return res
+
+
+def phase_count_engines(codes: np.ndarray, spectrum: torch.Tensor) -> dict:
+    """Phase 14; returns the row sort's record and both kernels' launches
+    in the counted main path ((b) and (c))."""
+    from allpathslg_tpu_torch.kmer import count as kcount
+
+    flat24 = kcount._kmer_flat(torch.from_numpy(codes).cuda(), FLAGSHIP_K)
+    t0 = time.perf_counter()
+    record = row_sort_parity(flat24)
+    say(f"[engines] (a) row sort: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launched = count_engines(codes, spectrum)
+    check(launched["row_sort"] > 0, "phase 14 launched no row sort")
+    say(f"[engines] (b, c) main path: {time.perf_counter() - t0:.1f} s; "
+        f"launches {launched}")
+    t0 = time.perf_counter()
+    grouped_card_vs_cpu(flat24)
+    say(f"[engines] (d) card == CPU: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tuned = tune_child()
+    say(f"[engines] (e) tune_count --dry on this card: flat "
+        f"{tuned['flat_ms']:.3f} ms a batch ({tuned['flat_mkmers_s']:.1f} M "
+        f"k-mers/s), bucketed {tuned['bucketed_ms']:.3f} ms "
+        f"({tuned['bucketed_mkmers_s']:.1f} M k-mers/s): winner "
+        f"{tuned['winner']}; {time.perf_counter() - t0:.1f} s")
+    record.update({"flat_engine_ms": tuned["flat_ms"],
+                   "bucketed_engine_ms": tuned["bucketed_ms"],
+                   "tuner_winner": tuned["winner"]})
+    return {"record": record, "launches": launched}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genome-size", type=int, default=200_000,
@@ -3264,7 +3573,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
                     help="run phases 1-6 and only these of 7, 8, 9, 9b, 10, "
-                         "11, 12 and 13 (comma-separated; 13 runs 8 too), "
+                         "11, 12, 13 and 14 (comma-separated; 13 runs 8 "
+                         "too), "
                          "to rehearse them; the default runs every phase")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
@@ -3348,11 +3658,20 @@ def main(argv=None) -> int:
         shutil.rmtree(FULL_DIR, ignore_errors=True)
         add({"radix_sort": mesh_record["launches"]})
         done("13 mesh")
+    row_record = {"max_abs_err": 0, "ms": None, "plain_ms": None,
+                  "library_ms": None, "bound_ms": None, "bound_by": "bytes"}
+    launched14 = {"row_sort": 0, "radix_sort": 0}
+    if wanted("14"):
+        engines = phase_count_engines(codes, spectrum)
+        row_record, launched14 = engines["record"], engines["launches"]
+        add({"radix_sort": launched14["radix_sort"]})
+        done("14 count engines")
     record.update({
         "phase8_key_counts": sizes8,
         "phase8_sorts_under_2**17": below(sizes8, SMALL_SORT_KEYS),
         "phase13_launches": mesh_record.pop("launches", 0),
         "phase13_key_counts": mesh_record.pop("key_counts", {}),
+        "phase14_launches": launched14["radix_sort"],
         **{f"mesh_{k}": v for k, v in mesh_record.items()}})
     bp_record["max_abs_err"] = max(bp_record["max_abs_err"],
                                    set_a_record.pop("max_abs_err"),
@@ -3376,6 +3695,11 @@ def main(argv=None) -> int:
         "replaces": "allpathslg_tpu/ops/pallas/sort_pallas.py:178",
         "launches": launched["radix_sort"],
         **record}, {
+        "name": "row_sort", "route": "cuda",
+        "source": "allpathslg_tpu_torch/csrc/row_sort.cu",
+        "replaces": "allpathslg_tpu/ops/bucket_count.py:73",
+        "launches": launched14["row_sort"],
+        **row_record}, {
         "name": "banded_bp", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/banded_bp.cu",
         "replaces": "allpathslg_tpu/ops/pallas/banded_bp.py:294",

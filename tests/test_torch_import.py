@@ -60,10 +60,12 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.native.build",
     "allpathslg_tpu_torch.ops.affine",
     "allpathslg_tpu_torch.ops.banded",
+    "allpathslg_tpu_torch.ops.bucket_count",
     "allpathslg_tpu_torch.ops.cuda.banded_cuda",
     "allpathslg_tpu_torch.ops.cuda.banded_general_cuda",
     "allpathslg_tpu_torch.ops.cuda.launches",
     "allpathslg_tpu_torch.ops.cuda.nvcc",
+    "allpathslg_tpu_torch.ops.cuda.row_sort_cuda",
     "allpathslg_tpu_torch.ops.cuda.sort_cuda",
     "allpathslg_tpu_torch.ops.join",
     "allpathslg_tpu_torch.ops.segmented",
@@ -84,6 +86,8 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.scaffold.scaffolder",
     "allpathslg_tpu_torch.scaffold.superb",
     "allpathslg_tpu_torch.tools",
+    "allpathslg_tpu_torch.tune_count",
+    "allpathslg_tpu_torch.tuning",
     "allpathslg_tpu_torch.utils.intdist",
 ]
 
@@ -91,7 +95,8 @@ REFERENCE_MODULES = [m.replace("allpathslg_tpu_torch", "allpathslg_tpu")
                      for m in PORT_MODULES
                      if m.split(".")[-1] not in (
                          "convert", "sort_cuda", "banded_cuda",
-                         "banded_general_cuda", "launches", "nvcc")] + [
+                         "banded_general_cuda", "launches", "nvcc",
+                         "row_sort_cuda", "tune_count")] + [
     "allpathslg_tpu.ops.pallas.sort_pallas",
     "allpathslg_tpu.ops.pallas.banded_bp",
     "allpathslg_tpu.ops.pallas.banded_pallas",
@@ -168,6 +173,7 @@ def test_chip_smoke_fails_without_cuda_or_package(tmp_path, alone):
     ("long.ultra", "_banded_votes"),
     ("long.ultra", "correct_round"),
     ("long.ultra", "correct_long_reads"),
+    ("tune_count", "measure"),
 ])
 def test_entry_points_default_to_the_card(module, name):
     """The port's functions that take a device run on the card unless the
@@ -200,3 +206,36 @@ def test_make_mesh_needs_a_card_unless_cpu_is_asked(device):
         pmesh.make_mesh(8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pmesh.make_mesh(8, device="cuda")
+
+
+@pytest.mark.parametrize("device,dry", [("cuda", True), ("cpu", True),
+                                        ("cpu", False)])
+def test_tune_count_needs_a_card_unless_cpu_is_asked(tmp_path, device, dry):
+    """The tuner runs on the card; without one it exits non-zero unless
+    --device cpu is given. It saves the winner to $APLG_TUNING_FILE only,
+    and with --dry writes nothing."""
+    import json
+
+    torch = pytest.importorskip("torch")
+    if device == "cuda" and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the tuner would run for real")
+    user = tmp_path / "kernel_tuning.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), APLG_TUNING_FILE=str(user))
+    argv = [sys.executable, "-m", "allpathslg_tpu_torch.tune_count",
+            "--device", device, "--reads", "256", "--read-len", "40",
+            "--reps", "1"] + (["--dry"] if dry else [])
+    r = subprocess.run(argv, cwd=tmp_path, env=env, capture_output=True,
+                       text=True, timeout=120)
+    if device == "cuda":
+        assert r.returncode != 0
+        assert "no CUDA device" in r.stderr
+        assert not user.exists()
+        return
+    assert r.returncode == 0, r.stderr
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    assert res["device"] == "cpu" and res["kmers"] == 256 * (40 - 24 + 1)
+    assert res["winner"] in ("flat", "bucketed")
+    if dry:
+        assert not user.exists()
+    else:
+        assert json.loads(user.read_text()) == {"count_engine": res["winner"]}
