@@ -65,12 +65,13 @@ def sort_rows_by_words(key_words: Sequence[torch.Tensor]):
     for hi in range(W, 0, -2):                  # least significant group first
         group = list(key_words[max(hi - 2, 0):hi])
         if perm is not None:
-            group = [w.gather(1, perm) for w in group]
+            at = perm.long()
+            group = [w.gather(1, at) for w in group]
         key, key_bits = _pack_key(group)
-        _, p = row_sort_cuda.row_sort(key, key_bits)
-        p = p.long()
-        perm = p if perm is None else perm.gather(1, p)
-    return [w.gather(1, perm) for w in key_words], perm.to(torch.int32)
+        # the sort composes its permutation with the one so far
+        _, perm = row_sort_cuda.row_sort(key, key_bits, perm)
+    at = perm.long()
+    return [w.gather(1, at) for w in key_words], perm
 
 
 def sort_by_words(key_words: Sequence[torch.Tensor],

@@ -109,7 +109,9 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      its share of idle lane-rows;
   9. run_full through the port's CLI, pipeline.run.main with --in-libs /
      --in-groups, check_mode=true, evaluation=CHEAT and batch_reads=4096,
-     once with --device cuda and once with --device cpu, over
+     once with --device cuda and once with --device cpu (the CPU's runs
+     of phases 9 and 9b are made by a child process that sees no card,
+     cpu_runs, started before phase 8 and waited for after it), over
      tests/test_torch_full.py's 40 kb genome with a two-copy 2.5 kb
      repeat (40x fragment, 15x jump reads of 4000 +- 350; cmp_inputs)
      with N bases drawn from the seed (with_n_bases: 0.1 % of bases, and
@@ -132,10 +134,11 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      and assisted run, long_read_patch must launch the general kernel on
      the card, and LONG_ARTIFACTS, CMP_TEXT_FILES and LONG_STAGES' metrics
      must be byte-identical;
- 10. `Pipeline(device="cuda").run_full()` over the reference's 500 kb
-     diploid multi-library configuration (diploid_inputs, from
-     tests/test_scale_diploid_multilib.py; ploidy=2) with haplotype 1 a
-     repeat genome of --diploid-genome-size (REPEAT_FAMILIES) and an
+ 10. `Pipeline(device="cuda").run_full()` over the reference's diploid
+     multi-library configuration (diploid_inputs, from
+     tests/test_scale_diploid_multilib.py, 500 kb there; ploidy=2) with
+     haplotype 1 a repeat genome of --diploid-genome-size (REPEAT_FAMILIES;
+     250 kb by default, which keeps the whole smoke inside its limit) and an
      assisting reference, with DPCapture installed: each stage's wall
      time and launches, long_read_patch's host anchoring and DP times
      (StageTimer), and checks that every new stage ran, that the general
@@ -209,9 +212,13 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      2-word keys with 1 % all-ones at the four shapes grouping_plan gives
      the flagship batch (ROW_SORT_SHAPES: 127 x 131,072 tiles and 127 x
      196,723 slabs at K=24, 55 x 131,072 and 55 x 196,625 at K=96), on
-     the flagship's own K=24 tiles, on odd rows of 1 and 3, and on rows
-     all sentinels; each timed in turns beside the plain version and
-     torch.sort(dim=1), with its byte bound; (b) spectrum_reads_auto with
+     the flagship's own K=24 tiles (also with an initial index, and its
+     histogram and bases kernels against theirs), on odd rows of 1 and 3,
+     on rows all sentinels and on row_sort_hard_cases (4,096 rows of one
+     tile, rows ending mid-tile, rows of one key, K=24 keys, sentinel
+     rows; each also with an initial index); each shape timed in turns
+     beside the plain version and torch.sort(dim=1), with its byte bound,
+     and the flagship tiles' device ms split by kernel; (b) spectrum_reads_auto with
      APLG_COUNT_ENGINE=bucketed on the flagship batch: its spectrum ==
      phase 4's, two row sorts and one sample sort launched (the bucketed
      path, no flat fallback), max_run <= slots; count_grouped's table,
@@ -250,13 +257,15 @@ run_full_* lists for phase 8's batches, and long_read_* and assisted_*
 lists for phase 10's timed batches of long_read_patch and assisted. The
 row sort's ms, plain_ms, library_ms and bound_ms are those of the
 flagship's K=24 tiles (127 x 131,072), with each shape of (a) under
-`shapes` and the tuner's two engines beside them. The
+`shapes`, its device ms by kernel under split_*_ms, and the tuner's two
+engines beside them. The
 last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import io
 import json
@@ -1848,45 +1857,57 @@ def diploid_inputs(hap1) -> dict:
     }
 
 
-def phase_full_compare(tag: str, inputs: dict, overrides: dict,
-                       artifacts, stages, must_launch, must_close=()):
-    """run_full through the port on the card and on the CPU over the same
-    inputs (save_inputs) with config `overrides`; checks that on the card
-    each (stage, kernel) of `must_launch` launched and each stage of
-    `must_close` closed at least one gap, and that every
-    artifact of `artifacts`, every file of CMP_TEXT_FILES and every stage
-    metric of `stages` is the same, byte for byte. Returns the card run's
-    launches by stage."""
+CMP_DIR = ROOT / "build" / "chip_smoke_cmp"      # phase 9b's run dirs
+ASSIST_REF = ROOT / "build" / "chip_smoke_relative.fasta"
+LONG_OVERRIDES = dict(batch_reads=16384, assist_ref=str(ASSIST_REF))
+
+
+def long_compare_run(device: str) -> tuple:
+    """One of phase 9b's runs: run_full through the port on `device` over
+    long_cmp_inputs (save_inputs) with an assisting reference, in
+    CMP_DIR / device: (run dir, launches by stage, wall s)."""
     from allpathslg_tpu_torch.ops.cuda import launches
     from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
     from allpathslg_tpu_torch.pipeline.rundir import RunDir
     from allpathslg_tpu_torch.pipeline.stages import Pipeline
 
-    rds = {}
-    for device in ("cuda", "cpu"):
-        run_dir = ROOT / "build" / f"chip_smoke_cmp_{device}"
-        shutil.rmtree(run_dir, ignore_errors=True)
-        rd = RunDir(str(run_dir))
-        save_inputs(rd, inputs)
-        pipe = Pipeline(rd, AssemblyConfig.from_overrides(**overrides),
-                        lambda *a: None, device=device)
-        launches.reset()
-        t0 = time.perf_counter()
-        pipe.run_full()
+    inputs, g = long_cmp_inputs()
+    ASSIST_REF.parent.mkdir(parents=True, exist_ok=True)
+    write_assist_ref(ASSIST_REF, g)
+    run_dir = CMP_DIR / device
+    shutil.rmtree(run_dir, ignore_errors=True)
+    rd = RunDir(str(run_dir))
+    save_inputs(rd, inputs)
+    pipe = Pipeline(rd, AssemblyConfig.from_overrides(**LONG_OVERRIDES),
+                    lambda *a: None, device=device)
+    launches.reset()
+    t0 = time.perf_counter()
+    pipe.run_full()
+    if device == "cuda":
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        by_stage = launches.by_stage()
-        say(f"[{tag}] run_full on {device}: {wall:.1f} s; launches by "
-            f"stage {by_stage}")
-        if device == "cuda":
-            card = by_stage
-            for stage, kernel in must_launch:
-                check(by_stage.get(stage, {}).get(kernel, 0) > 0,
-                      f"[{tag}] run_full on the card never launched "
-                      f"{kernel} in {stage}")
-        rds[device] = rd
-    gpu, cpu = rds["cuda"], rds["cpu"]
-    for art in artifacts:
+    return rd, launches.by_stage(), time.perf_counter() - t0
+
+
+def phase_long_compare(cpu_wall: float):
+    """Phase 9b: run_full on the card over long_cmp_inputs (long_compare_run)
+    against the CPU's run of cpu_runs, made before: long_read_patch must
+    launch the general kernel and close a gap on the card, and every
+    artifact of LONG_ARTIFACTS, every file of CMP_TEXT_FILES and every
+    stage metric of LONG_STAGES must be the same, byte for byte. Returns
+    the card run's launches by stage."""
+    from allpathslg_tpu_torch.pipeline.rundir import RunDir
+
+    tag = "compare-long"
+    check((CMP_DIR / "cpu").is_dir(), f"[{tag}] no CPU run in {CMP_DIR}")
+    gpu, card, wall = long_compare_run("cuda")
+    cpu = RunDir(str(CMP_DIR / "cpu"))
+    say(f"[{tag}] run_full on cuda: {wall:.1f} s; launches by stage {card}")
+    say(f"[{tag}] run_full on cpu: {cpu_wall:.1f} s (cpu_runs' child "
+        f"process, while phase 8 ran)")
+    check(card.get("long_read_patch", {}).get("banded_general", 0) > 0,
+          f"[{tag}] run_full on the card never launched banded_general in "
+          f"long_read_patch")
+    for art in LONG_ARTIFACTS:
         a, b = gpu.load_arrays(art), cpu.load_arrays(art)
         check(sorted(a) == sorted(b), f"{art}: keys {sorted(a)} on the card, "
               f"{sorted(b)} on the CPU")
@@ -1898,35 +1919,19 @@ def phase_full_compare(tag: str, inputs: dict, overrides: dict,
         a = Path(gpu.file_path(name)).read_bytes()
         b = Path(cpu.file_path(name)).read_bytes()
         check(a and a == b, f"{name} differs between the card and the CPU")
-    for stage in stages:
+    for stage in LONG_STAGES:
         check(gpu.metrics(stage) == cpu.metrics(stage),
               f"{stage} metrics differ: card {gpu.metrics(stage)}, CPU "
               f"{cpu.metrics(stage)}")
-    closed = {s: gpu.metrics(s)["n_gaps_closed"] for s in stages
+    closed = {s: gpu.metrics(s)["n_gaps_closed"] for s in LONG_STAGES
               if "n_gaps_closed" in gpu.metrics(s)}
-    for stage in must_close:
-        check(closed.get(stage, 0) >= 1, f"[{tag}] {stage} closed no gap")
-    say(f"[{tag}] card == CPU: {len(artifacts)} artifacts, "
-        f"{len(CMP_TEXT_FILES)} files and {len(stages)} stages' metrics "
+    check(closed.get("long_read_patch", 0) >= 1,
+          f"[{tag}] long_read_patch closed no gap")
+    say(f"[{tag}] card == CPU: {len(LONG_ARTIFACTS)} artifacts, "
+        f"{len(CMP_TEXT_FILES)} files and {len(LONG_STAGES)} stages' metrics "
         f"byte-identical; gaps closed {closed}")
-    for rd in rds.values():
-        shutil.rmtree(rd.path, ignore_errors=True)
-    return card
-
-
-def phase_long_compare():
-    """Phase 9b: phase_full_compare on long_cmp_inputs with an assisting
-    reference; long_read_patch must close a gap and launch the general
-    kernel on the card."""
-    inputs, g = long_cmp_inputs()
-    ref = ROOT / "build" / "chip_smoke_relative.fasta"
-    ref.parent.mkdir(parents=True, exist_ok=True)
-    write_assist_ref(ref, g)
-    card = phase_full_compare(
-        "compare-long", inputs, dict(batch_reads=16384, assist_ref=str(ref)),
-        LONG_ARTIFACTS, LONG_STAGES,
-        [("long_read_patch", "banded_general")], ["long_read_patch"])
-    ref.unlink()
+    shutil.rmtree(CMP_DIR, ignore_errors=True)
+    ASSIST_REF.unlink()
     return card
 
 
@@ -2020,59 +2025,85 @@ def query_n_split(capture: DPCapture) -> dict:
     return out
 
 
-def phase_cli_compare(seed: int):
-    """Phase 9: tests/test_torch_full.py's 40 kb inputs with N bases
-    (with_n_bases) written as files, then pipeline.run.main from the
-    sheets with check_mode and evaluation=CHEAT, once on the card and
-    once on the CPU; every file, array, stage metric and check/CHEAT log
-    line compared. Returns the card run's launches by stage."""
-    from allpathslg_tpu_torch.ops.cuda import launches
-    from allpathslg_tpu_torch.pipeline import run as prun
-    from allpathslg_tpu_torch.pipeline.rundir import RunDir
+CLI_DIR = ROOT / "build" / "chip_smoke_cli"   # phase 9's files, run dirs
 
-    base = ROOT / "build" / "chip_smoke_cli"
-    shutil.rmtree(base, ignore_errors=True)
+
+def cli_inputs(seed: int) -> tuple:
+    """Phase 9's inputs: (cmp_inputs(), its two read libraries with N
+    bases drawn from the seed)."""
     inputs = cmp_inputs()
     rng = np.random.default_rng(seed + 9)
     libs = {k: with_n_bases({key: np.asarray(v) for key, v in
                              inputs[k].items()}, rng)
             for k in ("frag_reads_orig", "jump_reads_orig")}
+    return inputs, libs
+
+
+def cli_run(seed: int, device: str, capture=None) -> float:
+    """One of phase 9's runs: pipeline.run.main on `device` from the sheets
+    in CLI_DIR / "reads" into CLI_DIR / device, with `capture` installed
+    when given; the CPU's run, made first, writes the files. Returns the
+    run's wall s."""
+    from allpathslg_tpu_torch.pipeline import run as prun
+    from allpathslg_tpu_torch.pipeline.rundir import RunDir
+
+    inputs, libs = cli_inputs(seed)
+    files = CLI_DIR / "reads"
+    if device == "cpu":
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+        write_read_files(files, libs["frag_reads_orig"],
+                         libs["jump_reads_orig"], (FRAG_INSERT, FRAG_SD),
+                         (4000, 350))
+    d = CLI_DIR / device
+    shutil.rmtree(d, ignore_errors=True)
+    RunDir(str(d)).save_arrays("genome_truth",
+                               genome=inputs["genome_truth"]["genome"])
+    if capture is not None:
+        capture.install()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = prun.main(["--run-dir", str(d), "--device", device,
+                            "--in-libs", str(files / "in_libs.csv"),
+                            "--in-groups", str(files / "in_groups.csv"),
+                            "check_mode=true", "evaluation=CHEAT",
+                            "batch_reads=4096"])
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        if capture is not None:
+            capture.remove()
+    check(rc == 0, f"[cli] pipeline.run.main on {device} returned {rc}")
+    return time.perf_counter() - t0
+
+
+def phase_cli_compare(seed: int, cpu_wall: float):
+    """Phase 9: tests/test_torch_full.py's 40 kb inputs with N bases
+    (with_n_bases) written as files, then pipeline.run.main from the
+    sheets with check_mode and evaluation=CHEAT on the card (cli_run),
+    against the CPU's run of cpu_runs, made before; every file, array,
+    stage metric and check/CHEAT log line compared. Returns the card
+    run's launches by stage."""
+    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch.pipeline.rundir import RunDir
+
+    base = CLI_DIR
+    check((base / "cpu").is_dir() and (base / "reads").is_dir(),
+          f"[cli] no CPU run in {base}")
+    _, libs = cli_inputs(seed)
     n_bases = {k: int((v["codes"] == 4).sum()
                       - (v["codes"].shape[1] - v["lengths"]).sum())
                for k, v in libs.items()}
-    files = base / "reads"
-    write_read_files(files, libs["frag_reads_orig"], libs["jump_reads_orig"],
-                     (FRAG_INSERT, FRAG_SD), (4000, 350))
-    argv = ["--in-libs", str(files / "in_libs.csv"), "--in-groups",
-            str(files / "in_groups.csv"), "check_mode=true",
-            "evaluation=CHEAT", "batch_reads=4096"]
     capture = DPCapture()
     capture.KEEP = 1 << 30            # every call
-    card, walls = {}, {}
-    for device in ("cuda", "cpu"):
-        d = base / device
-        RunDir(str(d)).save_arrays("genome_truth",
-                                   genome=inputs["genome_truth"]["genome"])
-        launches.reset()
-        if device == "cuda":
-            capture.install()
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(io.StringIO()):
-                rc = prun.main(["--run-dir", str(d), "--device", device]
-                               + argv)
-            torch.cuda.synchronize()
-        finally:
-            capture.remove()
-        walls[device] = time.perf_counter() - t0
-        check(rc == 0, f"[cli] pipeline.run.main on {device} returned {rc}")
-        if device == "cuda":
-            card = launches.by_stage()
+    launches.reset()
+    wall = cli_run(seed, "cuda", capture)
+    card = launches.by_stage()
     say(f"[cli] inputs: {n_bases} N bases within reads ({N_BASE_RATE} of "
         f"bases, {N_TAIL_READS} of reads ending in 5-10 N); run_full from "
         f"sheets through pipeline.run.main with check_mode and CHEAT: card "
-        f"{walls['cuda']:.1f} s, CPU {walls['cpu']:.1f} s; card launches "
-        f"by stage {card}")
+        f"{wall:.1f} s, CPU {cpu_wall:.1f} s (cpu_runs' child process, "
+        f"while phase 8 ran); card launches by stage {card}")
     check(card.get("validate_inputs", {}).get("radix_sort", 0) > 0,
           "[cli] check_mode's spectrum never launched the sort kernel")
     check(card.get("patch_gaps", {}).get("banded_general", 0) > 0,
@@ -2106,6 +2137,57 @@ def phase_cli_compare(seed: int):
         f"{un['cheat_genome_covered_frac']}")
     shutil.rmtree(base, ignore_errors=True)
     return card
+
+
+# Phases 9 and 9b hold the card's run against the CPU's. The CPU's runs
+# need no card, so a child process that sees none makes them (cpu_runs)
+# while phase 8 holds the card and a few of the host's cores; phases 9
+# and 9b wait for it, then make the card's runs and compare
+CPU_RUNS_CHILD = r"""
+import json, sys
+import chip_smoke as smoke
+print("cpu_runs", json.dumps(smoke.cpu_runs(int(sys.argv[1]), sys.argv[2:])),
+      flush=True)
+"""
+CPU_RUNS_LOG = ROOT / "build" / "chip_smoke_cpu_runs.log"
+CPU_RUNS_TIMEOUT_S = 900
+
+
+def cpu_runs(seed: int, phases) -> dict:
+    """The CPU's runs of those of phases 9 and 9b in `phases`: {phase:
+    wall s}."""
+    walls = {}
+    if "9" in phases:
+        walls["9"] = cli_run(seed, "cpu")
+    if "9b" in phases:
+        walls["9b"] = long_compare_run("cpu")[2]
+    return walls
+
+
+def start_cpu_runs(seed: int, phases) -> subprocess.Popen:
+    """cpu_runs in a child process that sees no card, its output in
+    CPU_RUNS_LOG; killed at exit if it still runs."""
+    CPU_RUNS_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with open(CPU_RUNS_LOG, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CPU_RUNS_CHILD, str(seed), *phases],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def cpu_runs_result(proc: subprocess.Popen) -> dict:
+    """Waits for start_cpu_runs' child: {phase: CPU wall s}."""
+    try:
+        rc = proc.wait(timeout=CPU_RUNS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = f"killed after {CPU_RUNS_TIMEOUT_S} s"
+    text = CPU_RUNS_LOG.read_text()
+    check(rc == 0, f"the CPU runs' child failed ({rc}):\n{text[-3000:]}")
+    line = [ln for ln in text.splitlines() if ln.startswith("cpu_runs ")][-1]
+    return json.loads(line[len("cpu_runs "):])
 
 
 # Phase 11: the tools CLI's inputs (bench.py's lookup cell for align;
@@ -2491,28 +2573,37 @@ ULTRA_TIMED = (("long.ultra", "friend_hits"), ("long.ultra", "_select_hits"),
 # idle seconds inside the profiler's window on either side of the
 # profiled call: late in a whole smoke, without them, the profiler
 # recorded no kernel of a 0.1 s call and lost some of a longer one's;
-# with them it recorded all
+# with them it recorded all, but for a rare profile that records no
+# kernel at all (one of the calls after affine's in a whole smoke), which
+# a second profile of the same call does not repeat
 PROFILE_MARGIN_S = 0.5
+PROFILE_ATTEMPTS = 3
 
 
 def kernel_rows(fn, what: str):
-    """(fn(), kernel launches, their summed device ms): fn() run once under
+    """(fn(), kernel launches, their summed device ms): fn() run under
     torch.profiler recording the card's activity only, PROFILE_MARGIN_S
     idle on either side, its kernel rows (device_type CUDA, copies and
-    sets left out). Raises when the profiler recorded no kernel."""
+    sets left out); run and profiled again when a profile recorded no
+    kernel. Raises when none of PROFILE_ATTEMPTS profiles recorded one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_MARGIN_S)
-        out = fn()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        time.sleep(PROFILE_MARGIN_S)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not e.key.startswith(("Memcpy", "Memset"))]
-    n = sum(e.count for e in rows)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            out = fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith(("Memcpy", "Memset"))]
+        n = sum(e.count for e in rows)
+        if n > 0:
+            break
+        say(f"[profile] {what}: torch.profiler recorded no kernel in "
+            f"profile {attempt} of {PROFILE_ATTEMPTS}")
     check(n > 0, f"{what}: torch.profiler recorded no kernel")
     return out, n, sum(e.self_device_time_total for e in rows) / 1e3
 
@@ -3341,25 +3432,123 @@ def row_sort_timed(keys: torch.Tensor, key_bits: int) -> dict:
             "bound_ms": row_sort_bound_ms(keys.numel()), "bound_by": "bytes"}
 
 
-def row_sort_parity(flat) -> dict:
-    """14(a): the row sort against its plain version, exactly, and timed;
-    returns {"max_abs_err", timed record of the flagship tiles,
-    "shapes": {label: timed}}."""
+def row_sort_hard_cases(gen) -> list:
+    """(what, keys, key_bits) of the shapes and key sets a row-scoped
+    one-sweep sort can get wrong (tests/test_torch_bucket_count.py's
+    _row_case, on the card): rows of one tile, rows that end mid-tile,
+    rows whose keys share a bucket in every digit while other rows
+    differ, K=24 keys with zero low 16 bits, rows of sentinels only."""
+    one_bucket = random_rows(5, 9000, 64, gen)
+    one_bucket[1] = one_bucket[0, 0]
+    one_bucket[2] = one_bucket[0, 1]
+    one_bucket[2, ::97] = -1
+    k24 = random_rows(6, 20_000, 64, gen)
+    k24 = torch.where(k24 == -1, k24, k24 & ~0xFFFF)
+    sentinel = random_rows(5, 7000, 64, gen)
+    sentinel[[0, 3]] = -1
+    return [("4,096 rows of 600", random_rows(4096, 600, 64, gen), 64),
+            ("3 x 6,145, rows ending mid-tile", random_rows(3, 6145, 64,
+                                                            gen), 64),
+            ("rows 1 and 2 of one key (+ sentinels)", one_bucket, 64),
+            ("K=24 keys, low 16 bits zero", k24, 64),
+            ("rows 0 and 3 sentinels only", sentinel, 64),
+            ("300 x 2,500, 1 word", random_rows(300, 2500, 32, gen), 32)]
+
+
+def flagship_tiles(flat) -> torch.Tensor:
+    """The flagship's 2-word K=24 keys as group_keys' tiles [T, R]."""
     from allpathslg_tpu_torch.ops import bucket_count
+
+    n_pad, R, _, _ = bucket_count.grouping_plan(flat[0].numel())
+    w0, w1 = bucket_count._pad_to(flat, n_pad)
+    return ((w0 << 32) | w1).reshape(n_pad // R, R)
+
+
+def row_sort_split(keys: torch.Tensor, reps: int = 5) -> dict:
+    """Device ms a sort of keys (2 words) by the row sort's kernels,
+    torch.profiler over reps sorts (profiled again, up to
+    PROFILE_ATTEMPTS times, when it recorded no pass kernel): {"histogram",
+    "bases", "passes", "memset", "device", "pass_launches"}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from allpathslg_tpu_torch.ops.cuda import row_sort_cuda
+
+    row_sort_cuda.row_sort(keys, 64)
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                row_sort_cuda.row_sort(keys, 64)
+            torch.cuda.synchronize()
+        split = dict.fromkeys(("histogram", "bases", "passes", "memset",
+                               "pass_launches"), 0.0)
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            ms = e.self_device_time_total / 1e3 / reps
+            for part, name in (("histogram", "::histogram_kernel"),
+                               ("bases", "::bases_kernel"),
+                               ("passes", "::pass_kernel"),
+                               ("memset", "Memset")):
+                if name in e.key:
+                    split[part] += ms
+                    if part == "passes":
+                        split["pass_launches"] += e.count / reps
+        if split["passes"] > 0:
+            break
+    split["device"] = sum(split[k] for k in ("histogram", "bases", "passes",
+                                             "memset"))
+    check(split["passes"] > 0, "row_sort_split: no pass kernel recorded")
+    return split
+
+
+# torch.profiler can lose kernel rows late in a long process (phases 7 and
+# 12 trace), so the split runs in a process of its own
+ROW_SORT_SPLIT_CHILD = r"""
+import json, sys
+import torch
+import chip_smoke as smoke
+from allpathslg_tpu_torch.kmer import count as kcount
+codes = torch.from_numpy(smoke.flagship_codes(int(sys.argv[1]))).cuda()
+tiles = smoke.flagship_tiles(kcount._kmer_flat(codes, smoke.FLAGSHIP_K))
+print(json.dumps(smoke.row_sort_split(tiles)), flush=True)
+"""
+
+
+def row_sort_split_child(seed: int) -> dict:
+    """row_sort_split of the flagship tiles (flagship_codes(seed)) in a
+    child process."""
+    proc = subprocess.run(
+        [sys.executable, "-c", ROW_SORT_SPLIT_CHILD, str(seed)], cwd=ROOT,
+        capture_output=True, text=True, timeout=TUNE_TIMEOUT_S)
+    check(proc.returncode == 0,
+          f"row sort split child failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def row_sort_parity(flat, seed: int) -> dict:
+    """14(a): the row sort against its plain version, exactly, and timed;
+    returns {"max_abs_err", timed record of the flagship tiles with its
+    device split, "shapes": {label: timed}}."""
     from allpathslg_tpu_torch.ops.cuda import row_sort_cuda
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
     max_err = 0
 
-    def held(keys, key_bits, what):
+    def held(keys, key_bits, what, idx=None):
         nonlocal max_err
-        got = row_sort_cuda.row_sort(keys, key_bits)
-        want = row_sort_cuda.row_sort_plain(keys, key_bits)
+        got = row_sort_cuda.row_sort(keys, key_bits, idx)
+        want = row_sort_cuda.row_sort_plain(keys, key_bits, idx)
         err = sort_err(got, want)
         check(err == 0 and torch.equal(got[0], want[0])
               and torch.equal(got[1], want[1]), f"row sort != plain on {what}")
         max_err = max(max_err, err)
+
+    def row_perms(keys):
+        return torch.argsort(torch.rand(keys.shape, generator=gen,
+                                        device="cuda"), dim=1).int()
 
     def show(what, tm):
         say(f"[rowsort] {what}: kernel {tm['ms']:.3f} ms, plain "
@@ -3367,12 +3556,29 @@ def row_sort_parity(flat) -> dict:
             f", bound {tm['bound_ms']:.4f} ({100 * tm['bound_ms'] / tm['ms']:.1f}"
             f" % of the kernel's time)")
 
-    n_pad, R, _, _ = bucket_count.grouping_plan(flat[0].numel())
-    w0, w1 = bucket_count._pad_to(flat, n_pad)
-    tiles = ((w0 << 32) | w1).reshape(n_pad // R, R)
+    tiles = flagship_tiles(flat)
     held(tiles, 64, "the flagship's K=24 tiles")
+    held(tiles, 64, "the flagship's K=24 tiles, initial index",
+         row_perms(tiles))
+    got, want = (row_sort_cuda.row_histogram(tiles, 64),
+                 row_sort_cuda.row_histogram_plain(tiles, 64))
+    check(all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+          and np.array_equal(got.union, want.union)
+          and got.n_ones == want.n_ones,
+          "row sort's histogram and bases kernels != plain on the tiles")
     record = row_sort_timed(tiles, 64)
-    show(f"flagship K=24 tiles {n_pad // R} x {R}, == plain", record)
+    show(f"flagship K=24 tiles {tiles.shape[0]} x {tiles.shape[1]}, == "
+         f"plain (also with an initial index; histogram and bases == "
+         f"plain)", record)
+    split = row_sort_split_child(seed)
+    say(f"[rowsort] flagship K=24 tiles, device ms a sort (torch.profiler, "
+        f"5 sorts, child process): histogram {split['histogram']:.4f}, bases "
+        f"{split['bases']:.4f}, passes {split['passes']:.4f} "
+        f"({split['pass_launches']:g} launches), memset "
+        f"{split['memset']:.4f}; device {split['device']:.4f} of the "
+        f"kernel's {record['ms']:.3f} ms")
+    record.update({f"split_{k}_ms": v for k, v in split.items()
+                   if k != "pass_launches"})
     shapes = {}
     for label, rows, row_len in ROW_SORT_SHAPES:
         for key_bits in (32, 64):
@@ -3395,6 +3601,12 @@ def row_sort_parity(flat) -> dict:
     held(torch.full((4, 5_000), 0xFFFFFFFF, dtype=torch.int64,
                     device="cuda"), 32, "every row all sentinels, 1 word")
     say(f"[rowsort] odd rows {ROW_SORT_ODD} and all-sentinel rows: == plain")
+    hard = row_sort_hard_cases(gen)
+    for what, keys, key_bits in hard:
+        held(keys, key_bits, what)
+        held(keys, key_bits, f"{what}, initial index", row_perms(keys))
+    say(f"[rowsort] {'; '.join(w for w, _, _ in hard)}: == plain, with "
+        f"and without an initial index")
     return {"max_abs_err": max_err, **record, "shapes": shapes}
 
 
@@ -3532,14 +3744,15 @@ def tune_child() -> dict:
     return res
 
 
-def phase_count_engines(codes: np.ndarray, spectrum: torch.Tensor) -> dict:
-    """Phase 14; returns the row sort's record and both kernels' launches
-    in the counted main path ((b) and (c))."""
+def phase_count_engines(codes: np.ndarray, spectrum: torch.Tensor,
+                        seed: int) -> dict:
+    """Phase 14 on flagship_codes(seed); returns the row sort's record and
+    both kernels' launches in the counted main path ((b) and (c))."""
     from allpathslg_tpu_torch.kmer import count as kcount
 
     flat24 = kcount._kmer_flat(torch.from_numpy(codes).cuda(), FLAGSHIP_K)
     t0 = time.perf_counter()
-    record = row_sort_parity(flat24)
+    record = row_sort_parity(flat24, seed)
     say(f"[engines] (a) row sort: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launched = count_engines(codes, spectrum)
@@ -3568,7 +3781,7 @@ def main(argv=None) -> int:
                     help="genome of the contig-slice phase (7)")
     ap.add_argument("--full-genome-size", type=int, default=4_600_000,
                     help="genome of the run_full phase (8)")
-    ap.add_argument("--diploid-genome-size", type=int, default=500_000,
+    ap.add_argument("--diploid-genome-size", type=int, default=250_000,
                     help="haplotype of the diploid run_full phase (10)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default="",
@@ -3626,6 +3839,8 @@ def main(argv=None) -> int:
     bp_record = {"max_abs_err": 0, "library_ms": None}
     general_full = {"max_abs_err": 0}
     sizes8 = {}
+    cpu_phases = [p for p in ("9", "9b") if wanted(p)]
+    cpu_proc = start_cpu_runs(args.seed, cpu_phases) if cpu_phases else None
     if wanted("8") or wanted("13"):         # phase 13 reruns phase 8's stages
         capture = DPCapture()
         total8, sizes8 = phase_full(args.full_genome_size, args.seed, capture,
@@ -3633,11 +3848,12 @@ def main(argv=None) -> int:
         add(total8)
         bp_record, general_full = phase_dp_batches(capture, int_rate, chain)
         done("8 run_full from files")
+    cpu_walls = cpu_runs_result(cpu_proc) if cpu_phases else {}
     if wanted("9"):
-        add_by_stage(phase_cli_compare(args.seed))
+        add_by_stage(phase_cli_compare(args.seed, cpu_walls["9"]))
         done("9 card == CPU through the CLI, N-bearing reads")
     if wanted("9b"):
-        add_by_stage(phase_long_compare())
+        add_by_stage(phase_long_compare(cpu_walls["9b"]))
         done("9b card == CPU, long reads")
     err10 = {"banded_bp": 0, "banded_general": 0}
     bp10, general10 = {}, {"long_read_patch": [], "assisted": []}
@@ -3662,7 +3878,7 @@ def main(argv=None) -> int:
                   "library_ms": None, "bound_ms": None, "bound_by": "bytes"}
     launched14 = {"row_sort": 0, "radix_sort": 0}
     if wanted("14"):
-        engines = phase_count_engines(codes, spectrum)
+        engines = phase_count_engines(codes, spectrum, args.seed)
         row_record, launched14 = engines["record"], engines["launches"]
         add({"radix_sort": launched14["radix_sort"]})
         done("14 count engines")
@@ -3697,7 +3913,7 @@ def main(argv=None) -> int:
         **record}, {
         "name": "row_sort", "route": "cuda",
         "source": "allpathslg_tpu_torch/csrc/row_sort.cu",
-        "replaces": "allpathslg_tpu/ops/bucket_count.py:73",
+        "replaces": "allpathslg_tpu/ops/bucket_count.py:73, :117",
         "launches": launched14["row_sort"],
         **row_record}, {
         "name": "banded_bp", "route": "cuda",

@@ -8,8 +8,10 @@ count_grouped's (words, counts, starts) on its first attempt, its retry
 with doubled slack and its flat fallback, spectrum_grouped's (spec,
 n_unique, ok) with and without slab overflow, grouping_plan, and
 spectrum_reads_auto under both engines. On the CPU the row sort is its
-plain version; it is held against a per-row np.lexsort here, and the
-`cuda`-marked cases hold the kernel against it on a card.
+plain version; it is held against a per-row np.lexsort and argsort here,
+with and without an initial index, on the shapes a row-scoped one-sweep
+sort can get wrong, beside its scratch layout and its per-row histograms;
+the `cuda`-marked cases hold the kernel against it on a card.
 """
 
 import numpy as np
@@ -187,6 +189,150 @@ def test_row_sort_plain_orders_unsigned_keys(key_bits):
     assert (got.numpy().view(np.uint64)[:, -1] == hi - 1).all()
 
 
+def _row_case(case):
+    """(uint64 keys [rows, row_len], key_bits) of a shape or key set that a
+    row-scoped one-sweep sort can get wrong."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    top = np.uint64(2**64 - 1)
+
+    def rand(rows, row_len):
+        return rng.integers(0, 2**64 - 1, (rows, row_len), dtype=np.uint64,
+                            endpoint=True)
+
+    if case == "short_rows":                    # 4,096 rows of one tile
+        u = rand(4096, 600)
+    elif case == "rows_end_mid_tile":           # 1.5 tiles a row
+        u = rand(3, 6145)
+    elif case == "one_bucket_rows":             # rows 1, 2 agree everywhere
+        u = rand(5, 9000)
+        u[1] = u[0, 0]
+        u[2] = u[0, 1]
+        u[2, ::97] = top
+    elif case == "k24_low_zero":                # K=24 keys, low 16 bits 0
+        u = rand(6, 20_000) >> np.uint64(16) << np.uint64(16)
+    elif case == "sentinel_rows":               # rows 0 and 3 sentinels only
+        u = rand(5, 7000)
+        u[[0, 3]] = top
+    elif case == "one_word_short_rows":
+        u = rng.integers(0, 2**32, (300, 2500), dtype=np.uint64)
+        u[rng.random(u.shape) < 0.05] = 2**32 - 1
+        return u, 32
+    elif case == "slabs":                       # the flagship's K=24 slabs
+        u = rand(127, 196_723)
+    else:
+        raise ValueError(case)
+    u[rng.random(u.shape) < 0.01] = top
+    return u, 64
+
+
+ROW_CASES = ("short_rows", "rows_end_mid_tile", "one_bucket_rows",
+             "k24_low_zero", "sentinel_rows", "one_word_short_rows")
+
+
+def _row_perms(shape, seed):
+    """A random permutation of each row (int32): an initial index."""
+    rng = np.random.default_rng(seed)
+    return np.argsort(rng.random(shape), axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+@pytest.mark.parametrize("with_idx", [False, True])
+def test_row_sort_cases_match_numpy(case, with_idx):
+    """The plain version on the kernel's hard cases, with and without an
+    initial index, against a stable numpy argsort of each row."""
+    u, key_bits = _row_case(case)
+    want = np.argsort(u, axis=1, kind="stable")
+    idx = _row_perms(u.shape, 3) if with_idx else None
+    got, perm = row_sort_cuda.row_sort(
+        torch.from_numpy(u.view(np.int64)), key_bits,
+        None if idx is None else torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy().view(np.uint64),
+                                  np.take_along_axis(u, want, 1))
+    assert perm.dtype == torch.int32
+    np.testing.assert_array_equal(
+        perm.numpy(), want if idx is None else np.take_along_axis(idx, want,
+                                                                  1))
+
+
+@pytest.mark.parametrize("key_bits", [32, 64])
+def test_row_sort_initial_index_composes_passes(key_bits):
+    """Sorting by a low key, then by a high key with the first
+    permutation as the initial index, orders rows by (high, low) stably:
+    what sort_rows_by_words does with word groups."""
+    rng = np.random.default_rng(key_bits + 1)
+    low = rng.integers(0, 50, (4, 3000)).astype(np.int64)
+    high = rng.integers(0, 20, (4, 3000)).astype(np.int64)
+    _, p = row_sort_cuda.row_sort(torch.from_numpy(low), key_bits)
+    high_by_p = np.take_along_axis(high, p.numpy().astype(np.int64), 1)
+    _, perm = row_sort_cuda.row_sort(torch.from_numpy(high_by_p), key_bits,
+                                     p)
+    want = np.stack([np.lexsort([low[r], high[r]]) for r in range(4)])
+    np.testing.assert_array_equal(perm.numpy(), want)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape"])
+def test_row_sort_refuses_a_bad_initial_index(bad):
+    keys = torch.zeros((2, 10), dtype=torch.int64)
+    idx = (torch.zeros((2, 10), dtype=torch.int64) if bad == "dtype"
+           else torch.zeros((2, 9), dtype=torch.int32))
+    with pytest.raises(ValueError, match="idx"):
+        row_sort_cuda.row_sort(keys, 64, idx)
+
+
+@pytest.mark.parametrize("rows,row_len,key_bits,tile", [
+    (127, 131_072, 64, 4096), (127, 196_723, 64, 4096),
+    (55, 131_072, 32, 6144), (1, 1, 64, 4096), (4096, 600, 32, 4096)])
+def test_scratch_layout(rows, row_len, key_bits, tile):
+    """The regions follow each other without overlap: the union, one
+    histogram a row, a status region of rows x tiles x 257 words and a
+    tile counter for each digit position, then the bases (the words
+    before them are zeroed)."""
+    lay = row_sort_cuda.scratch_layout(rows, row_len, key_bits, tile)
+    positions = key_bits // 8
+    tiles = -(-row_len // tile)
+    assert lay.row_hist == 8 * 256 + 1 == row_sort_cuda.HIST_WORDS
+    assert lay.status - lay.row_hist == rows * (positions * 256 + 1)
+    assert lay.status_stride == rows * tiles * 257 + 1
+    assert lay.bases - lay.status == positions * lay.status_stride
+    assert lay.total - lay.bases == rows * positions * 257
+
+
+@pytest.mark.parametrize("key_bits", [32, 64])
+@pytest.mark.parametrize("case", ["k24_low_zero", "sentinel_rows",
+                                  "one_bucket_rows"])
+def test_row_histogram_plain_matches_numpy(case, key_bits):
+    """Each row's digit counts over its keys that are not all-ones, its
+    all-ones count and its bucket starts, by numpy bincount; the union
+    equals the flat sort's histogram of all the keys, so the plan is the
+    flat plan."""
+    from allpathslg_tpu_torch.ops.cuda import sort_cuda
+
+    u, _ = _row_case(case)
+    if key_bits == 32:
+        u = u >> np.uint64(32)
+    ones = np.uint64(2**key_bits - 1)
+    keys = torch.from_numpy(u.view(np.int64))
+    got = row_sort_cuda.row_histogram(keys, key_bits)
+    positions = key_bits // 8
+    for r in range(u.shape[0]):
+        rest = u[r][u[r] != ones]
+        want = np.stack([np.bincount(
+            ((rest >> np.uint64(8 * p)) & np.uint64(255)).astype(np.int64),
+            minlength=256) for p in range(positions)])
+        np.testing.assert_array_equal(got.counts[r].numpy(), want)
+        assert int(got.ones[r]) == int((u[r] == ones).sum())
+        bases = np.concatenate([np.zeros((positions, 1), np.int64),
+                                np.cumsum(want, 1)], 1)
+        np.testing.assert_array_equal(got.bases[r].numpy(), bases)
+    flat, n_ones = sort_cuda.digit_histogram_plain(keys.reshape(-1),
+                                                   key_bits)
+    np.testing.assert_array_equal(got.union, flat)
+    assert got.n_ones == n_ones
+    n = u.size
+    assert (sort_cuda.plan_passes(got.union, got.n_ones, n, key_bits)
+            == sort_cuda.plan_passes(flat, n_ones, n, key_bits))
+
+
 @pytest.mark.parametrize("engine,reads", [
     ("flat", "random"), ("bucketed", "random"), ("bucketed", "one_key")])
 def test_spectrum_reads_auto_matches_reference(monkeypatch, tmp_path,
@@ -231,6 +377,34 @@ def test_row_sort_kernel_matches_plain_version(cuda_device, rows, row_len,
     want, wperm = row_sort_cuda.row_sort_plain(keys, key_bits)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(gperm, wperm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROW_CASES + ("slabs",))
+@pytest.mark.parametrize("with_idx", [False, True])
+def test_row_sort_kernel_matches_plain_on_hard_cases(cuda_device, case,
+                                                     with_idx):
+    u, key_bits = _row_case(case)
+    keys = torch.from_numpy(u.view(np.int64)).to(cuda_device)
+    idx = (torch.from_numpy(_row_perms(u.shape, 5)).to(cuda_device)
+           if with_idx else None)
+    got, gperm = row_sort_cuda.row_sort(keys, key_bits, idx)
+    want, wperm = row_sort_cuda.row_sort_plain(keys, key_bits, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(gperm, wperm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["short_rows", "k24_low_zero", "slabs"])
+def test_row_histogram_kernel_matches_plain(cuda_device, case):
+    u, key_bits = _row_case(case)
+    keys = torch.from_numpy(u.view(np.int64)).to(cuda_device)
+    got = row_sort_cuda.row_histogram(keys, key_bits)
+    want = row_sort_cuda.row_histogram_plain(keys, key_bits)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(got.union, want.union)
+    assert got.n_ones == want.n_ones
 
 
 @pytest.mark.cuda
