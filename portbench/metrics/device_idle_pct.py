@@ -1,0 +1,9 @@
+"""100 - the union of device activity (kernels, copies, sets) over the
+traced samples' wall, in %."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if not t.window_s or not t.busy_s:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)

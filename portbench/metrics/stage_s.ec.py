@@ -1,0 +1,9 @@
+"""Mean seconds a sample in the stages of this layer (manifest elapsed_s)."""
+
+from portbench.metrics import stage_mean_s
+
+STAGES = ('precorrect', 'find_errors', 'clean_reads', 'jump_ec')
+
+
+def read(ctx):
+    return stage_mean_s(ctx, STAGES)

@@ -1,0 +1,9 @@
+"""Mean seconds a sample in the stages of this layer (manifest elapsed_s)."""
+
+from portbench.metrics import stage_mean_s
+
+STAGES = ('validate_inputs', 'remove_dodgy')
+
+
+def read(ctx):
+    return stage_mean_s(ctx, STAGES)
