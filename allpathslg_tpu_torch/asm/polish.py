@@ -24,6 +24,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from allpathslg_tpu_torch import trace
+
 
 @dataclasses.dataclass(frozen=True)
 class PolishConfig:
@@ -112,17 +114,20 @@ def polish_contigs(flat_bases: np.ndarray, offsets: np.ndarray,
         return flat_bases, 0
     out = flat_bases.copy()
     n_changed = 0
-    for s0, s1, votes in _pileup_segments(offsets, codes, lengths,
-                                          al_contig, al_anchor, al_rc, al_ok):
-        support = votes.sum(1)
-        winner = votes.argmax(1)
-        win_n = votes[np.arange(s1 - s0), winner]
-        cur = flat_bases[s0:s1].astype(np.int64)
-        change = ((support >= cfg.min_support)
-                  & (win_n >= cfg.min_frac * support)
-                  & (winner != cur) & (cur < 4))
-        out[s0:s1][change] = winner[change].astype(np.uint8)
-        n_changed += int(change.sum())
+    with trace.span("polish.pileup") as sp:
+        for s0, s1, votes in _pileup_segments(offsets, codes, lengths,
+                                              al_contig, al_anchor, al_rc,
+                                              al_ok):
+            sp.add("passes")
+            support = votes.sum(1)
+            winner = votes.argmax(1)
+            win_n = votes[np.arange(s1 - s0), winner]
+            cur = flat_bases[s0:s1].astype(np.int64)
+            change = ((support >= cfg.min_support)
+                      & (win_n >= cfg.min_frac * support)
+                      & (winner != cur) & (cur < 4))
+            out[s0:s1][change] = winner[change].astype(np.uint8)
+            n_changed += int(change.sum())
     return out, n_changed
 
 
@@ -187,16 +192,19 @@ def polish_indels(flat_bases: np.ndarray, offsets: np.ndarray,
         return flat_bases, offsets, 0, []
     # contested columns, collected per segment (bounded memory at scale)
     cpos_parts, sup_parts = [], []
-    for s0, s1, votes in _pileup_segments(offsets, codes, lengths,
-                                          al_contig, al_anchor, al_rc, ok):
-        support = votes.sum(1)
-        win_n = votes.max(1)
-        contested = (support >= cfg.min_support) \
-            & (win_n < cfg.min_frac * support)
-        p = np.nonzero(contested)[0]
-        if len(p):
-            cpos_parts.append(p + s0)
-            sup_parts.append(support[p])
+    with trace.span("polish.pileup") as sp:
+        for s0, s1, votes in _pileup_segments(offsets, codes, lengths,
+                                              al_contig, al_anchor, al_rc,
+                                              ok):
+            sp.add("passes")
+            support = votes.sum(1)
+            win_n = votes.max(1)
+            contested = (support >= cfg.min_support) \
+                & (win_n < cfg.min_frac * support)
+            p = np.nonzero(contested)[0]
+            if len(p):
+                cpos_parts.append(p + s0)
+                sup_parts.append(support[p])
     if not cpos_parts:
         return flat_bases, offsets, 0, []
     cpos = np.concatenate(cpos_parts)
@@ -289,7 +297,9 @@ def polish_indels(flat_bases: np.ndarray, offsets: np.ndarray,
                 meta.append((si, vi))
     if not probs_q:
         return flat_bases, offsets, 0, []
-    tot, nreads = _batch_costs(probs_q, probs_t, meta)
+    with trace.span("polish.indel_score") as sp:
+        sp.add("problems", len(probs_q))
+        tot, nreads = _batch_costs(probs_q, probs_t, meta)
 
     # pick best per suspect; refine a winning ins1 with ins2 candidates
     edits = []  # (ci, abs_start, kind, arg)
@@ -324,7 +334,9 @@ def polish_indels(flat_bases: np.ndarray, offsets: np.ndarray,
         else:
             edits.append((ci, ws, edit))
     if probs_q2:
-        tot2, _ = _batch_costs(probs_q2, probs_t2, meta2)
+        with trace.span("polish.indel_score") as sp:
+            sp.add("problems", len(probs_q2))
+            tot2, _ = _batch_costs(probs_q2, probs_t2, meta2)
         for si, (ci, ws, x, kind, arg, best_c) in pending2.items():
             best2, best2_c = None, best_c
             for vj in range(16):

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from allpathslg_tpu_torch import trace
+
 
 def pack_codes(codes: np.ndarray):
     """Host pack: [N, L] uint8 (0..4) -> (words [N, ceil(L/16)] uint32,
@@ -106,19 +108,24 @@ def pack_quals(quals: np.ndarray):
 def device_codes(codes: np.ndarray, device) -> torch.Tensor:
     """Host uint8 [N, L] code batch -> device uint8 [N, L], moved 2-bit
     packed and unpacked on the device."""
-    w, m, L = pack_codes(codes)
-    return unpack_codes(to_device_words(w, device),
-                        to_device_words(m, device), L)
+    with trace.span("upload") as sp:
+        w, m, L = pack_codes(codes)
+        sp.add("bytes", w.nbytes + m.nbytes)
+        return unpack_codes(to_device_words(w, device),
+                            to_device_words(m, device), L)
 
 
 def device_quals(quals: np.ndarray, device) -> torch.Tensor:
     """Host uint8 qual batch -> device, moved 4-bit palette-packed when
     <=16 distinct values, raw otherwise."""
-    nib, pal, L = pack_quals(quals)
-    if nib is None:
-        return torch.from_numpy(np.asarray(pal)).to(device)
-    return unpack_quals(to_device_words(nib, device),
-                        torch.from_numpy(pal).to(device), L)
+    with trace.span("upload") as sp:
+        nib, pal, L = pack_quals(quals)
+        pal = np.asarray(pal)
+        sp.add("bytes", pal.nbytes + (0 if nib is None else nib.nbytes))
+        if nib is None:
+            return torch.from_numpy(pal).to(device)
+        return unpack_quals(to_device_words(nib, device),
+                            torch.from_numpy(pal).to(device), L)
 
 
 def unpack_quals(nibbles, palette, L: int):

@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from allpathslg_tpu_torch import trace
 from allpathslg_tpu_torch.dtypes import packed as pk
 from allpathslg_tpu_torch.kmer import bits, kmerize
 from allpathslg_tpu_torch.kmer import count as kcount
@@ -210,32 +211,34 @@ def precorrect_global_resident(db, cfg: PrecorrectConfig = PrecorrectConfig(),
     say(f"  [precorrect] pass 1: {db.n_batches} batches x "
         f"{n_blocks} hash blocks")
     block_tables = []
-    for blk in range(n_blocks):
-        sc = kcount.StreamingCounter()
-        for i in range(db.n_batches):
-            sc.add(precorrect_stats_batch_packed_blocked(
-                db.words[i], db.nmask[i], db.qnib[i], db.qpal[i], db.L,
-                blk, n_blocks))
-        t = sc.finish(min_count=min(2, cfg.min_winner))
-        block_tables.append(t)
-        say(f"  [precorrect] block {blk}: {int(t.n_unique)} strong rows")
-    if len(block_tables) > 1:
-        merged = kcount.merge_tables(block_tables)
-    else:
-        merged = block_tables[0]
-    merged = kcount.pad_table_quantized(merged)
-    ht = join.hash_table(list(merged.words), payloads=[merged.counts])
-    say(f"  [precorrect] stack table hashed (scan depth H={ht.H})")
+    with trace.span("ec.round", phase="stack table"):
+        for blk in range(n_blocks):
+            sc = kcount.StreamingCounter()
+            for i in range(db.n_batches):
+                sc.add(precorrect_stats_batch_packed_blocked(
+                    db.words[i], db.nmask[i], db.qnib[i], db.qpal[i], db.L,
+                    blk, n_blocks))
+            t = sc.finish(min_count=min(2, cfg.min_winner))
+            block_tables.append(t)
+            say(f"  [precorrect] block {blk}: {int(t.n_unique)} strong rows")
+        if len(block_tables) > 1:
+            merged = kcount.merge_tables(block_tables)
+        else:
+            merged = block_tables[0]
+        merged = kcount.pad_table_quantized(merged)
+        ht = join.hash_table(list(merged.words), payloads=[merged.counts])
+        say(f"  [precorrect] stack table hashed (scan depth H={ht.H})")
 
     say(f"  [precorrect] pass 2: voting {db.n_batches} batches")
     total = 0
-    for i in range(db.n_batches):
-        ow, om, k = precorrect_apply_batch_packed(
-            db.words[i], db.nmask[i], db.qnib[i], db.qpal[i], db.L,
-            ht, None, cfg)
-        db.update_codes(i, ow, om)
-        total += int(k)
-        if (i + 1) % 10 == 0 or i + 1 == db.n_batches:
-            say(f"  [precorrect] voted {i + 1}/{db.n_batches} batches "
-                f"({total} corrections)")
+    with trace.span("ec.round", phase="vote"):
+        for i in range(db.n_batches):
+            ow, om, k = precorrect_apply_batch_packed(
+                db.words[i], db.nmask[i], db.qnib[i], db.qpal[i], db.L,
+                ht, None, cfg)
+            db.update_codes(i, ow, om)
+            total += int(k)
+            if (i + 1) % 10 == 0 or i + 1 == db.n_batches:
+                say(f"  [precorrect] voted {i + 1}/{db.n_batches} batches "
+                    f"({total} corrections)")
     return total

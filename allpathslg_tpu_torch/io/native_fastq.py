@@ -12,10 +12,12 @@ below '!' in uint8.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Tuple
 
 import numpy as np
 
+from allpathslg_tpu_torch import trace
 from allpathslg_tpu_torch.io import fasta as pio
 from allpathslg_tpu_torch.native import build as nbuild
 
@@ -43,6 +45,14 @@ def _read_native(path: str):
 def read_fastq_arrays(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(codes [N, Lmax] uint8, quals [N, Lmax] uint8, lengths [N] int32)."""
     path = str(path)
+    with trace.span("ingest.fastq", file=path) as sp:
+        out = _read_arrays(path)
+        sp.add("reads", len(out[2]))
+        sp.add("bytes", os.path.getsize(path))
+        return out
+
+
+def _read_arrays(path: str):
     if not path.endswith(".gz"):
         got = _read_native(path)
         if got is not None:

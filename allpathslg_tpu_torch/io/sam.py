@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from allpathslg_tpu_torch import trace
 from allpathslg_tpu_torch.dtypes.reads import (codes_from_string,
                                                string_from_codes)
 
@@ -50,6 +51,14 @@ def read_sam(path: str, keep_duplicates: bool = True):
     Returns (codes [N, Lmax] uint8, quals [N, Lmax] uint8, lengths [N],
     pairs [P, 2] int32, names list[str]).
     """
+    with trace.span("ingest.sam", file=str(path)) as sp:
+        out = _parse(path, keep_duplicates)
+        sp.add("reads", len(out[2]))
+        sp.add("bytes", os.path.getsize(path))
+        return out
+
+
+def _parse(path: str, keep_duplicates: bool):
     seqs: List[np.ndarray] = []
     quals: List[np.ndarray] = []
     names: List[str] = []

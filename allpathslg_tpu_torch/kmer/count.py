@@ -22,6 +22,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from allpathslg_tpu_torch import trace
 from allpathslg_tpu_torch.kmer import bits, kmerize
 from allpathslg_tpu_torch.ops import segmented
 from allpathslg_tpu_torch.ops import sort as ops_sort
@@ -573,8 +574,11 @@ def pad_table_quantized(ck: CountedKmers, floor: int = 1 << 20
 
 
 def trim_to_host(ck: CountedKmers) -> CountedKmers:
-    """Slice the padded table down to its true size."""
-    n = int(ck.n_unique)
+    """Slice the padded table down to its true size (the span `download`:
+    its size is the one value that comes to the host)."""
+    with trace.span("download") as sp:
+        n = int(ck.n_unique)
+        sp.add("bytes", ck.n_unique.element_size())
     return CountedKmers(words=[w[:n] for w in ck.words],
                         counts=ck.counts[:n],
                         qsum=None if ck.qsum is None else ck.qsum[:n],

@@ -27,22 +27,23 @@ import ctypes
 import torch
 
 from allpathslg_tpu_torch.ops import banded
-from allpathslg_tpu_torch.ops.cuda import launches, nvcc
+from allpathslg_tpu_torch import trace
+from allpathslg_tpu_torch.ops.cuda import nvcc
 
 MAX_BAND = 15          # K = 2 * band + 1 slots must fit one uint32
 _SOURCE = "banded_bp.cu"
 
-_KERNEL = "banded_bp"  # name in ops/cuda/launches.py
+_KERNEL = "banded_bp"  # name in allpathslg_tpu_torch/trace.py
 _lib = None
 
 
 def launch_count() -> int:
     """Kernel launches made through `banded_align_bp` since the last reset."""
-    return launches.count(_KERNEL)
+    return trace.count(_KERNEL)
 
 
 def reset_launch_count() -> None:
-    launches.reset(_KERNEL)
+    trace.reset(_KERNEL)
 
 
 def banded_align_bp_plain(q, q_len, t, t_len, offset, band: int = 15):
@@ -95,7 +96,7 @@ def _banded_align_bp_cuda(q, q_len, t, t_len, offset, band: int):
         msg = lib.banded_bp_error_string(err).decode()
         raise RuntimeError(f"banded_bp_launch failed: CUDA error {err} "
                            f"({msg})")
-    launches.record(_KERNEL)
+    trace.record(_KERNEL)
     return cost, t_end
 
 

@@ -25,25 +25,26 @@ import ctypes
 import torch
 
 from allpathslg_tpu_torch.ops import banded
-from allpathslg_tpu_torch.ops.cuda import launches, nvcc
+from allpathslg_tpu_torch import trace
+from allpathslg_tpu_torch.ops.cuda import nvcc
 
 MAX_BAND = 255         # 2 * band + 1 slots over 32 lanes x 16 registers
 MAX_COST = 1024        # with MAX_LQ, keeps every cell inside int32
 MAX_LQ = 1 << 20
 _SOURCE = "banded_general.cu"
 
-_KERNEL = "banded_general"  # name in ops/cuda/launches.py
+_KERNEL = "banded_general"  # name in allpathslg_tpu_torch/trace.py
 _lib = None
 
 
 def launch_count() -> int:
     """Kernel launches made through `banded_align_general` since the last
     reset."""
-    return launches.count(_KERNEL)
+    return trace.count(_KERNEL)
 
 
 def reset_launch_count() -> None:
-    launches.reset(_KERNEL)
+    trace.reset(_KERNEL)
 
 
 def banded_general_plain(q, q_len, t, t_len, offset, band: int = 16,
@@ -110,7 +111,7 @@ def _banded_general_cuda(q, q_len, t, t_len, offset, band: int,
         msg = lib.banded_general_error_string(err).decode()
         raise RuntimeError(f"banded_general_launch failed: CUDA error {err} "
                            f"({msg})")
-    launches.record(_KERNEL)
+    trace.record(_KERNEL)
     return cost, t_end
 
 

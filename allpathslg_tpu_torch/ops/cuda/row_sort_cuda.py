@@ -36,7 +36,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from allpathslg_tpu_torch.ops.cuda import launches, nvcc, sort_cuda
+from allpathslg_tpu_torch import trace
+from allpathslg_tpu_torch.ops.cuda import nvcc, sort_cuda
 
 _SIGN = -(1 << 63)          # int64 with only the top bit set
 _SOURCE = "row_sort.cu"
@@ -46,7 +47,7 @@ HIST_WORDS = 8 * RADIX + 1  # the union: 8 x 256 counts, then all-ones
 MAX_KEYS = 1 << 31          # rows * row_len; the histogram counts are 32-bit
 MAX_ROW_LEN = 1 << 30       # the look-back counts a row's keys in 30 bits
 
-_KERNEL = "row_sort"  # name in ops/cuda/launches.py
+_KERNEL = "row_sort"  # name in allpathslg_tpu_torch/trace.py
 _lib = None
 
 
@@ -221,7 +222,7 @@ def _row_sort_cuda(keys: torch.Tensor, key_bits: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         work, lay = _start_histogram(lib, keys, key_bits, stream)
-        launches.record(_KERNEL, size=keys.numel())
+        trace.record(_KERNEL, size=keys.numel())
         # the outputs are allocated while the histogram runs
         keys_a, keys_b = torch.empty_like(keys), torch.empty_like(keys)
         idx_a = torch.empty((rows, row_len), dtype=torch.int32, device=dev)

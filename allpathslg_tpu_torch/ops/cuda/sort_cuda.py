@@ -29,24 +29,25 @@ import ctypes
 import numpy as np
 import torch
 
-from allpathslg_tpu_torch.ops.cuda import launches, nvcc
+from allpathslg_tpu_torch import trace
+from allpathslg_tpu_torch.ops.cuda import nvcc
 
 _SIGN = -(1 << 63)          # int64 with only the top bit set
 _SOURCE = "radix_sort.cu"
 RADIX_BITS = 8
 MAX_KEYS = 1 << 30          # the kernel's look-back counts have 30 bits
 
-_KERNEL = "radix_sort"  # name in ops/cuda/launches.py
+_KERNEL = "radix_sort"  # name in allpathslg_tpu_torch/trace.py
 _lib = None
 
 
 def launch_count() -> int:
     """Kernel launches made through `radix_sort` since the last reset."""
-    return launches.count(_KERNEL)
+    return trace.count(_KERNEL)
 
 
 def reset_launch_count() -> None:
-    launches.reset(_KERNEL)
+    trace.reset(_KERNEL)
 
 
 def radix_sort_plain(keys: torch.Tensor, key_bits: int):
@@ -166,7 +167,7 @@ def _radix_sort_cuda(keys: torch.Tensor, key_bits: int):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         work = _start_histogram(lib, keys, key_bits, stream)
-        launches.record(_KERNEL, size=n)
+        trace.record(_KERNEL, size=n)
         # the outputs are allocated while the histogram runs
         keys_a, keys_b = torch.empty_like(keys), torch.empty_like(keys)
         idx_a = torch.empty(n, dtype=torch.int32, device=dev)

@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from allpathslg_tpu_torch import trace
 from allpathslg_tpu_torch.pipeline.rundir import RunDir
 
 
@@ -157,7 +158,14 @@ def _concat_reads(parts):
 
 def prepare_inputs(rd: RunDir, in_libs: str, in_groups: str,
                    ploidy: int = 1, log=print) -> Dict[str, int]:
-    """Convert library sheets into run-dir artifacts. Returns counts."""
+    """Convert library sheets into run-dir artifacts (the span
+    `ingest`). Returns counts."""
+    with trace.span("ingest", run=rd.path):
+        return _prepare(rd, in_libs, in_groups, ploidy, log)
+
+
+def _prepare(rd: RunDir, in_libs: str, in_groups: str, ploidy: int,
+             log) -> Dict[str, int]:
     libs = read_in_libs(in_libs)
     groups = read_in_groups(in_groups)
     base = os.path.dirname(os.path.abspath(in_groups))

@@ -20,6 +20,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from allpathslg_tpu_torch import trace
+
 
 class RunDir:
     def __init__(self, path: str):
@@ -55,16 +57,18 @@ class RunDir:
         # feudal binary files, not compressed)
         arrays = {k: np.asarray(v) for k, v in arrays.items()}
         total = sum(a.nbytes for a in arrays.values())
-        if total >= self.BIG_BYTES:
-            return self._save_dir(name, arrays)
-        tmp = self._file(name) + ".tmp"
-        with open(tmp, "wb") as fh:
-            np.savez(fh, **arrays)
-        os.replace(tmp, self._file(name))
-        if os.path.isdir(self._dir(name)):  # stale big form of same name
-            import shutil
-            shutil.rmtree(self._dir(name), ignore_errors=True)
-        return self._file(name)
+        with trace.span("artifact.save", run=self.path, artifact=name) as sp:
+            sp.add("bytes", total)
+            if total >= self.BIG_BYTES:
+                return self._save_dir(name, arrays)
+            tmp = self._file(name) + ".tmp"
+            with open(tmp, "wb") as fh:
+                np.savez(fh, **arrays)
+            os.replace(tmp, self._file(name))
+            if os.path.isdir(self._dir(name)):  # stale big form of same name
+                import shutil
+                shutil.rmtree(self._dir(name), ignore_errors=True)
+            return self._file(name)
 
     def _save_dir(self, name: str, arrays: Dict[str, np.ndarray]) -> str:
         import shutil
@@ -86,17 +90,24 @@ class RunDir:
                     ) -> Dict[str, np.ndarray]:
         """mmap=True: large (.arrd) artifacts come back as read-only
         np.memmap views — rows page in on demand (VirtualMasterVec analog).
-        npz artifacts always load eagerly (zip members cannot be mapped)."""
-        d = self._dir(name)
-        if os.path.isdir(d):
-            out = {}
-            for fn in sorted(os.listdir(d)):
-                if fn.endswith(".npy"):
-                    out[fn[:-4]] = np.load(os.path.join(d, fn),
-                                           mmap_mode="r" if mmap else None)
+        npz artifacts always load eagerly (zip members cannot be mapped).
+        The span `artifact.load` covers the read, or the open only of
+        mapped arrays (whose bytes count as `mapped`, not `bytes`)."""
+        with trace.span("artifact.load", run=self.path, artifact=name) as sp:
+            d = self._dir(name)
+            if os.path.isdir(d):
+                out = {}
+                for fn in sorted(os.listdir(d)):
+                    if fn.endswith(".npy"):
+                        out[fn[:-4]] = np.load(os.path.join(d, fn),
+                                               mmap_mode="r" if mmap else None)
+                sp.add("mapped" if mmap else "bytes",
+                       sum(a.nbytes for a in out.values()))
+                return out
+            with np.load(self._file(name)) as z:
+                out = {k: z[k] for k in z.files}
+            sp.add("bytes", sum(a.nbytes for a in out.values()))
             return out
-        with np.load(self._file(name)) as z:
-            return {k: z[k] for k in z.files}
 
     def has(self, name: str) -> bool:
         return os.path.exists(self._file(name)) or os.path.isdir(self._dir(name))

@@ -36,7 +36,8 @@ stays resident on it across the EC stages (dtypes/devcache).
 Diagnostics: check_mode holds validate_inputs' spectrum of the first 512
 reads against the Python oracle (eval/oracle.py); evaluation="CHEAT" adds
 the truth metrics of find_errors and unipaths; profile_dir writes a
-torch.profiler trace of each stage to `{profile_dir}/{stage}/`. With
+torch.profiler trace of each stage to `{profile_dir}/{stage}/`, with the
+program's spans (allpathslg_tpu_torch/trace.py) in it. With
 n_devices > 1 the counting and K-table stages run on a mesh of that many
 shards on the Pipeline's device (parallel/*): validate_inputs' spectra
 and find_errors' rounds through hash-routed counting, unipaths' K table
@@ -55,6 +56,7 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from allpathslg_tpu_torch import trace
 from allpathslg_tpu_torch.dtypes import packed as _packed
 from allpathslg_tpu_torch.dtypes.devcache import DeviceBatches
 from allpathslg_tpu_torch.dtypes.reads import batch_from_codes
@@ -66,16 +68,15 @@ from allpathslg_tpu_torch.io import fasta as fio
 from allpathslg_tpu_torch.kmer import count as kcount
 from allpathslg_tpu_torch.kmer import spectrum as kspec
 from allpathslg_tpu_torch.ops import join
-from allpathslg_tpu_torch.ops.cuda import launches
 from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
 from allpathslg_tpu_torch.pipeline.rundir import RunDir
 
 # the reference's input-validation kmer size: per-library 25-mer spectra
 # (ref: ValidateAllPathsInputs 25-mer kspec) — distinct from the EC K_ec
 K_VALIDATE = 25
-# profile_dir traces one stage at a time: the stage that starts while
-# another is traced raises, as the reference's jax.profiler.trace does when
-# run_full's DAG runs two stages at once (stage_workers > 1)
+# profile_dir opens one torch.profiler session at a time (torch allows one
+# a process): a stage that starts while another stage's session is open
+# runs inside that session, and its spans go into that stage's trace
 _PROFILE_LOCK = threading.Lock()
 
 
@@ -250,12 +251,16 @@ class Pipeline:
         self.log(f"[{name}] running...")
         watch = _StageWatchdog(name, t0, self.cfg.stage_heartbeat_s,
                                self.cfg.stage_timeout_s, self.log)
+
+        def traced():
+            with trace.stage(name, run=self.rd.path):
+                return fn() or {}
+
         try:
-            with launches.stage(name):
-                if self.cfg.profile_dir:
-                    metrics = self._profiled(name, fn)
-                else:
-                    metrics = fn() or {}
+            if self.cfg.profile_dir:
+                metrics = self._profiled(name, traced)
+            else:
+                metrics = traced()
         finally:
             watch.stop()
         dt = time.time() - t0
@@ -368,7 +373,8 @@ class Pipeline:
             ok &= (frac_a < 0.9) & (frac_t < 0.9)
             if pairs is not None and len(pairs):
                 # duplicate pairs: identical (r1,r2) base content, exact
-                dup = _dup_pair_mask(codes, pairs)
+                with trace.span("dodgy.dup_pairs"):
+                    dup = _dup_pair_mask(codes, pairs)
                 ok[pairs[dup, 0]] = False
                 ok[pairs[dup, 1]] = False
                 # a pair survives only whole
@@ -444,53 +450,54 @@ class Pipeline:
                 db = self._resident_batches("frag_reads_prec")
             # global strong table per round over all batches, then correct
             for r in range(start_round, ecfg.rounds):
-                if cfg.fault_stage == f"find_errors@round{r}":
-                    raise RuntimeError(
-                        f"injected fault in find_errors round {r}")
-                # pre-filter to the strong thresholds during the streamed
-                # merge: the raw (reads x windows) table never materializes
-                if self._mesh is not None:
-                    # the mesh path counts straight from the RESIDENT
-                    # packed batches (rows split over the shards): no
-                    # read-set host round-trip per round
-                    from allpathslg_tpu_torch.parallel import \
-                        dist_count as dcount
-                    ck_acc = dcount.count_resident_streaming_dist(
-                        self._mesh, db, ecfg.K,
-                        min_count=ecfg.min_strong_count,
-                        min_qsum=ecfg.min_strong_qsum)
-                else:
-                    ck_acc = kcount.count_resident_streaming(
-                        db, ecfg.K, min_count=ecfg.min_strong_count,
-                        min_qsum=ecfg.min_strong_qsum)
-                table, n_strong = sec.strong_table(ck_acc, ecfg)
-                del ck_acc  # free the raw table before correction
-                tw_save = sec.compact_strong_table(table, int(n_strong))
-                table = join.hash_table(tw_save)
-                self.log(f"  [find_errors] round {r}: strong table built "
-                         f"(scan depth H={table.H})")
-                n_round = 0
-                for i in range(db.n_batches):
-                    ow, om, n = sec.correct_round_packed(
-                        db.words[i], db.nmask[i], db.qnib[i], db.qpal[i],
-                        db.L, table, ecfg)
-                    db.update_codes(i, ow, om)
-                    n_round += int(n)
-                    if (i + 1) % 10 == 0:
-                        self.log(f"  [find_errors] round {r}: corrected "
-                                 f"{i + 1}/{db.n_batches} batches")
-                total += n_round
-                self.log(f"  [find_errors] round {r}: "
-                         f"n_strong={int(n_strong)} fixes={n_round}")
-                if n_round < ecfg.min_round_fixes_frac * db.n_real:
-                    break       # fixpoint reached (adaptive round cutoff)
-                if cfg.round_checkpoints and r + 1 < ecfg.rounds:
-                    tmp = ck_file + ".tmp"
-                    with open(tmp, "wb") as f:
-                        np.savez(f, ih=ih, next_round=r + 1, total=total,
-                                 codes=db.codes_to_host())
-                    os.replace(tmp, ck_file)
-                    self.log(f"  [find_errors] round {r}: checkpointed")
+                with trace.span("ec.round", round=r):
+                    if cfg.fault_stage == f"find_errors@round{r}":
+                        raise RuntimeError(
+                            f"injected fault in find_errors round {r}")
+                    # pre-filter to the strong thresholds during the streamed
+                    # merge: the raw (reads x windows) table never materializes
+                    if self._mesh is not None:
+                        # the mesh path counts straight from the RESIDENT
+                        # packed batches (rows split over the shards): no
+                        # read-set host round-trip per round
+                        from allpathslg_tpu_torch.parallel import \
+                            dist_count as dcount
+                        ck_acc = dcount.count_resident_streaming_dist(
+                            self._mesh, db, ecfg.K,
+                            min_count=ecfg.min_strong_count,
+                            min_qsum=ecfg.min_strong_qsum)
+                    else:
+                        ck_acc = kcount.count_resident_streaming(
+                            db, ecfg.K, min_count=ecfg.min_strong_count,
+                            min_qsum=ecfg.min_strong_qsum)
+                    table, n_strong = sec.strong_table(ck_acc, ecfg)
+                    del ck_acc  # free the raw table before correction
+                    tw_save = sec.compact_strong_table(table, int(n_strong))
+                    table = join.hash_table(tw_save)
+                    self.log(f"  [find_errors] round {r}: strong table built "
+                             f"(scan depth H={table.H})")
+                    n_round = 0
+                    for i in range(db.n_batches):
+                        ow, om, n = sec.correct_round_packed(
+                            db.words[i], db.nmask[i], db.qnib[i], db.qpal[i],
+                            db.L, table, ecfg)
+                        db.update_codes(i, ow, om)
+                        n_round += int(n)
+                        if (i + 1) % 10 == 0:
+                            self.log(f"  [find_errors] round {r}: corrected "
+                                     f"{i + 1}/{db.n_batches} batches")
+                    total += n_round
+                    self.log(f"  [find_errors] round {r}: "
+                             f"n_strong={int(n_strong)} fixes={n_round}")
+                    if n_round < ecfg.min_round_fixes_frac * db.n_real:
+                        break       # fixpoint reached (adaptive round cutoff)
+                    if cfg.round_checkpoints and r + 1 < ecfg.rounds:
+                        tmp = ck_file + ".tmp"
+                        with open(tmp, "wb") as f:
+                            np.savez(f, ih=ih, next_round=r + 1, total=total,
+                                     codes=db.codes_to_host())
+                        os.replace(tmp, ck_file)
+                        self.log(f"  [find_errors] round {r}: checkpointed")
             np.save(rd.file_path("strong_table.npy"),
                     kcount._words_to_np(tw_save))
             out_codes = db.codes_to_host()
@@ -583,17 +590,19 @@ class Pipeline:
             for s in range(0, len(p_pad), B):
                 e = s + B
                 pp = p_pad[s:e]
-                c, q, l, ok = afill.fill_pairs(
-                    _packed.device_codes(codes[pp[:, 0]], dev),
-                    _packed.device_quals(quals[pp[:, 0]], dev),
-                    lens(pp[:, 0]),
-                    _packed.device_codes(codes[pp[:, 1]], dev),
-                    _packed.device_quals(quals[pp[:, 1]], dev),
-                    lens(pp[:, 1]), fcfg, out_len)
-                m_codes[s:e] = c.cpu().numpy()
-                m_quals[s:e] = q.cpu().numpy()
-                m_len[s:e] = l.cpu().numpy()
-                m_ok[s:e] = ok.cpu().numpy()
+                # a batch's uploads, fill_pairs and the copies back
+                with trace.span("fill.pairs", pairs=len(pp)):
+                    c, q, l, ok = afill.fill_pairs(
+                        _packed.device_codes(codes[pp[:, 0]], dev),
+                        _packed.device_quals(quals[pp[:, 0]], dev),
+                        lens(pp[:, 0]),
+                        _packed.device_codes(codes[pp[:, 1]], dev),
+                        _packed.device_quals(quals[pp[:, 1]], dev),
+                        lens(pp[:, 1]), fcfg, out_len)
+                    m_codes[s:e] = c.cpu().numpy()
+                    m_quals[s:e] = q.cpu().numpy()
+                    m_len[s:e] = l.cpu().numpy()
+                    m_ok[s:e] = ok.cpu().numpy()
             m_codes = m_codes[:n_real_p]
             m_quals = m_quals[:n_real_p]
             m_len = m_len[:n_real_p]
@@ -650,44 +659,42 @@ class Pipeline:
             from allpathslg_tpu_torch.long import eval_by_reads as ebr
 
             a = rd.load_arrays("filled_reads", mmap=True)
-            t0 = time.perf_counter()
-            if self._mesh is not None:
-                # K=96 table via the distributed sample sort: globally
-                # sorted shards concatenate into the table
-                from allpathslg_tpu_torch.parallel import dist_count as dcount
-                ck_acc = dcount.table_via_sample_sort(
-                    self._mesh, a["codes"], cfg.K,
-                    batch_size=cfg.batch_reads,
-                    min_count=cfg.min_kmer_count)
-            else:
-                ck_acc = kcount.count_reads_streaming(
-                    a["codes"], cfg.K, batch_size=cfg.batch_reads,
-                    min_count=cfg.min_kmer_count, device=self.device)
-            ck_acc = kcount.trim_to_host(ck_acc)
-            self.log(f"  [unipaths] K={cfg.K} count: "
-                     f"{time.perf_counter() - t0:.1f}s "
+            with trace.span("unipaths.count") as sp:
+                if self._mesh is not None:
+                    # K=96 table via the distributed sample sort: globally
+                    # sorted shards concatenate into the table
+                    from allpathslg_tpu_torch.parallel import \
+                        dist_count as dcount
+                    ck_acc = dcount.table_via_sample_sort(
+                        self._mesh, a["codes"], cfg.K,
+                        batch_size=cfg.batch_reads,
+                        min_count=cfg.min_kmer_count)
+                else:
+                    ck_acc = kcount.count_reads_streaming(
+                        a["codes"], cfg.K, batch_size=cfg.batch_reads,
+                        min_count=cfg.min_kmer_count, device=self.device)
+                ck_acc = kcount.trim_to_host(ck_acc)
+            self.log(f"  [unipaths] K={cfg.K} count: {sp.took} "
                      f"({int(ck_acc.n_unique)} kmers)")
-            t0 = time.perf_counter()
-            ups, graph, placement = unipath.build_unipaths(
-                ck_acc.words, cfg.K, min_count=cfg.min_kmer_count,
-                counts=ck_acc.counts, with_graph=True, with_placement=True,
-                mesh=self._mesh, device=self.device)
-            self.log(f"  [unipaths] condense: "
-                     f"{time.perf_counter() - t0:.1f}s ({ups.n} unipaths)")
+            with trace.span("unipaths.condense") as sp:
+                ups, graph, placement = unipath.build_unipaths(
+                    ck_acc.words, cfg.K, min_count=cfg.min_kmer_count,
+                    counts=ck_acc.counts, with_graph=True,
+                    with_placement=True, mesh=self._mesh, device=self.device)
+            self.log(f"  [unipaths] condense: {sp.took} ({ups.n} unipaths)")
             # localization: path the filled reads (= insert walks) through
             # the unipath graph, drop uncrossed edges, split threaded
             # repeats (ref: LocalizeReadsLG/MergeNeighborhoods)
             lm = {}
             if ups.n > 1:
-                t0 = time.perf_counter()
-                rp = pdb.path_reads(placement, a["codes"],
-                                    batch_size=cfg.batch_reads)
-                self.log(f"  [unipaths] path_reads: "
-                         f"{time.perf_counter() - t0:.1f}s")
-                t0 = time.perf_counter()
-                ups, graph, lm, rp = aloc.localize_resolve(ups, graph, rp)
-                self.log(f"  [unipaths] localize_resolve: "
-                         f"{time.perf_counter() - t0:.1f}s")
+                with trace.span("unipaths.path_reads") as sp:
+                    rp = pdb.path_reads(placement, a["codes"],
+                                        batch_size=cfg.batch_reads)
+                self.log(f"  [unipaths] path_reads: {sp.took}")
+                with trace.span("unipaths.localize") as sp:
+                    ups, graph, lm, rp = aloc.localize_resolve(ups, graph,
+                                                               rp)
+                self.log(f"  [unipaths] localize_resolve: {sp.took}")
                 # truth-free read-support QC of the assembly graph (ref:
                 # src/paths/long/EvalByReads — placed/coherent fractions)
                 nw = np.maximum(
@@ -699,37 +706,39 @@ class Pipeline:
             cn, peak = gcov.copy_numbers(ups)
             # graph simplification: pop het bubbles (ploidy 2), trim spurs,
             # merge linear chains (ref: MergeNeighborhoods2-style cleanup)
-            t0 = time.perf_counter()
-            contigs, cm = gclean.simplify(ups, graph, cfg.K,
-                                          ploidy=cfg.ploidy)
-            self.log(f"  [unipaths] simplify: "
-                     f"{time.perf_counter() - t0:.1f}s")
-            bases = (np.concatenate(contigs.seqs) if contigs.seqs
-                     else np.zeros(0, np.uint8))
-            offsets = np.zeros(len(contigs.seqs) + 1, np.int64)
-            np.cumsum([len(s) for s in contigs.seqs], out=offsets[1:])
-            # flatten ambiguity records (contig, offset, kept_len, alt...)
-            amb_c, amb_off, amb_klen, amb_alt, amb_aoff = [], [], [], [], [0]
-            for ci, alist in enumerate(contigs.ambiguities):
-                for (off, klen, alt) in alist:
-                    amb_c.append(ci)
-                    amb_off.append(off)
-                    amb_klen.append(klen)
-                    amb_alt.extend(alt.tolist())
-                    amb_aoff.append(len(amb_alt))
-            rd.save_arrays("unibases", bases=bases, offsets=offsets,
-                           amb_contig=np.asarray(amb_c, np.int32),
-                           amb_offset=np.asarray(amb_off, np.int64),
-                           amb_kept_len=np.asarray(amb_klen, np.int32),
-                           amb_alt=np.asarray(amb_alt, np.uint8),
-                           amb_alt_offsets=np.asarray(amb_aoff, np.int64))
+            with trace.span("unipaths.simplify") as sp:
+                contigs, cm = gclean.simplify(ups, graph, cfg.K,
+                                              ploidy=cfg.ploidy)
+            self.log(f"  [unipaths] simplify: {sp.took}")
+            with trace.span("unipaths.write"):
+                bases = (np.concatenate(contigs.seqs) if contigs.seqs
+                         else np.zeros(0, np.uint8))
+                offsets = np.zeros(len(contigs.seqs) + 1, np.int64)
+                np.cumsum([len(s) for s in contigs.seqs], out=offsets[1:])
+                # flatten ambiguity records (contig, offset, kept_len, alt...)
+                amb_c, amb_off, amb_klen, amb_alt = [], [], [], []
+                amb_aoff = [0]
+                for ci, alist in enumerate(contigs.ambiguities):
+                    for (off, klen, alt) in alist:
+                        amb_c.append(ci)
+                        amb_off.append(off)
+                        amb_klen.append(klen)
+                        amb_alt.extend(alt.tolist())
+                        amb_aoff.append(len(amb_alt))
+                rd.save_arrays("unibases", bases=bases, offsets=offsets,
+                               amb_contig=np.asarray(amb_c, np.int32),
+                               amb_offset=np.asarray(amb_off, np.int64),
+                               amb_kept_len=np.asarray(amb_klen, np.int32),
+                               amb_alt=np.asarray(amb_alt, np.uint8),
+                               amb_alt_offsets=np.asarray(amb_aoff, np.int64))
             if self._cheat:
                 lm = {**lm, **self._cheat_assembly_report(
                     bases, offsets, "unipaths")}
-            recs = [(f"contig_{i}", contigs.seqs[i])
-                    for i in range(len(contigs.seqs))]
-            fio.write_fasta(rd.file_path("unibases.fasta"), recs)
-            self._write_unibases_efasta(contigs)
+            with trace.span("unipaths.write"):
+                recs = [(f"contig_{i}", contigs.seqs[i])
+                        for i in range(len(contigs.seqs))]
+                fio.write_fasta(rd.file_path("unibases.fasta"), recs)
+                self._write_unibases_efasta(contigs)
             lens = [len(s) for s in contigs.seqs]
             st = stats.assembly_stats(lens)
             return {"n_unipaths": ups.n, "n50": st["n50"],
@@ -767,8 +776,9 @@ class Pipeline:
     def _align_reads_to_contigs(self, reads_art: str, out_art: str):
         rd = self.rd
         u = rd.load_arrays("unibases")
-        al = self._align_arrays(u["bases"], u["offsets"],
-                                rd.load_arrays(reads_art, mmap=True))
+        reads = rd.load_arrays(reads_art, mmap=True)
+        with trace.span("align.place"):
+            al = self._align_arrays(u["bases"], u["offsets"], reads)
         rd.save_arrays(out_art, **al)
         return {"n_aligned": int(al["aligned"].sum()),
                 "align_rate": round(float(al["aligned"].mean()), 3)}
@@ -827,7 +837,8 @@ class Pipeline:
                 return {"skipped": "no jump library"}
             u = rd.load_arrays("unibases")
             j = rd.load_arrays("jump_reads_ec", mmap=True)
-            al = self._align_arrays(u["bases"], u["offsets"], j)
+            with trace.span("align.place"):
+                al = self._align_arrays(u["bases"], u["offsets"], j)
             C, D, O, OK = (al[k] for k in ("contig", "anchor", "is_rc",
                                            "aligned"))
             # the true insert distribution PER LIBRARY from same-contig
@@ -1237,7 +1248,8 @@ class Pipeline:
             u = self._final_contigs()
             fr = rd.load_arrays("filled_reads", mmap=True)
             # re-place reads on the (patched) contigs
-            m = self._align_arrays(u["bases"], u["offsets"], fr)
+            with trace.span("polish.realign"):
+                m = self._align_arrays(u["bases"], u["offsets"], fr)
             bases, n_changed = apol.polish_contigs(
                 u["bases"], u["offsets"], fr["codes"], fr["lengths"],
                 m["contig"], m["anchor"], m["is_rc"], m["aligned"])
@@ -1250,7 +1262,8 @@ class Pipeline:
             amb = AmbTable.from_arrays(u)
             if n_indel:
                 amb = amb.shift(edit_rows)
-                m2 = self._align_arrays(bases, offsets, fr)
+                with trace.span("polish.realign"):
+                    m2 = self._align_arrays(bases, offsets, fr)
                 bases, n_changed2 = apol.polish_contigs(
                     bases, offsets, fr["codes"], fr["lengths"],
                     m2["contig"], m2["anchor"], m2["is_rc"], m2["aligned"])
@@ -1588,9 +1601,26 @@ class Pipeline:
 
     def _run_dag(self, jobs: Dict[str, tuple], max_workers: int = 1):
         """Topological thread-pool executor over (deps, fn) jobs. With
-        max_workers=1 this is the serial order."""
+        max_workers=1 this is the serial order. Each job's wait, from the
+        end of its last dependency (or the DAG's start) to its start on a
+        worker, is recorded as the span `dag.wait`."""
         import concurrent.futures as cf
 
+        t_start, ended = time.perf_counter(), {}
+
+        def timed(n, deps, fn):
+            def job():
+                t = time.perf_counter()
+                trace.record("dag.wait", max([t_start] + [
+                    ended[d] for d in deps]), t, stage=n, run=self.rd.path)
+                try:
+                    return fn()
+                finally:
+                    ended[n] = time.perf_counter()
+            return job
+
+        jobs = {n: (deps, timed(n, deps, fn))
+                for n, (deps, fn) in jobs.items()}
         if max_workers <= 1:
             done: set = set()
             while len(done) < len(jobs):
@@ -1625,25 +1655,31 @@ class Pipeline:
     def _profiled(self, name: str, fn) -> Dict:
         """fn() under torch.profiler (CPU activity, and CUDA on the card),
         its Chrome trace written to `{profile_dir}/{name}/trace.json`
-        (ref: jax.profiler.trace into the same directory)."""
+        (ref: jax.profiler.trace into the same directory) with the
+        program's spans of the session added as "X" events. A stage that
+        starts while another stage's session is open (stage_workers > 1)
+        runs inside that session: its ops and spans go into that stage's
+        trace, and it writes none of its own."""
+        if not _PROFILE_LOCK.acquire(blocking=False):
+            return fn()
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-        if not _PROFILE_LOCK.acquire(blocking=False):
-            raise RuntimeError(
-                f"profile_dir: stage {name} started while another stage is "
-                f"traced. Profile has already been started. Only one "
-                f"profile may be run at a time (run with stage_workers=1)")
         try:
             with torch.profiler.profile(activities=acts) as prof:
-                metrics = fn() or {}
+                t_mark = trace.mark()
+                metrics = fn()
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
+                t_end = time.perf_counter()
         finally:
             _PROFILE_LOCK.release()
         out = os.path.join(self.cfg.profile_dir, name)
         os.makedirs(out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        path = os.path.join(out, "trace.json")
+        prof.export_chrome_trace(path)
+        trace.merge_chrome_trace(path, t_mark, t_end,
+                                 threading.get_native_id())
         return metrics
 
     def _check_spectrum_oracle(self, batch, spec, n_sample: int = 512,

@@ -1435,7 +1435,7 @@ class DPCapture:
     def _wrap(self, kernel, fn):
         import inspect
 
-        from allpathslg_tpu_torch.ops.cuda import launches
+        from allpathslg_tpu_torch import trace
 
         sig = inspect.signature(fn)
 
@@ -1445,7 +1445,7 @@ class DPCapture:
             a = bound.arguments
             q, t = a["q"], a["t"]
             kw = {k: a[k] for k in ("band", "sub_cost", "gap_cost") if k in a}
-            key = (kernel, launches.current_stage(), q.shape[0], q.shape[1],
+            key = (kernel, trace.current_stage(), q.shape[0], q.shape[1],
                    t.shape[1], kw["band"])
             ql = a["q_len"].to(torch.int64)
             stats = (torch.stack([ql.min(), ql.sum(), ql.max()])
@@ -1604,7 +1604,7 @@ def phase_full(genome_size: int, seed: int, capture: DPCapture,
     launches in the run and the sort's key-count histogram. With `keep`
     the run dir (FULL_DIR) stays for phase 13."""
     from allpathslg_tpu_torch.eval import stats
-    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch import trace
     from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
     from allpathslg_tpu_torch.pipeline.rundir import RunDir
     from allpathslg_tpu_torch.pipeline.stages import Pipeline
@@ -1617,7 +1617,7 @@ def phase_full(genome_size: int, seed: int, capture: DPCapture,
 
     cfg = AssemblyConfig.from_overrides()
     pipe = Pipeline(rd, cfg, lambda *a: None, device="cuda")
-    launches.reset()
+    trace.reset()
     capture.install()
     try:
         t0 = time.perf_counter()
@@ -1626,10 +1626,10 @@ def phase_full(genome_size: int, seed: int, capture: DPCapture,
         wall = time.perf_counter() - t0
     finally:
         capture.remove()
-    by_stage = launches.by_stage()
-    total = {k: launches.count(k) for k in ("radix_sort", "banded_bp",
+    by_stage = trace.by_stage()
+    total = {k: trace.count(k) for k in ("radix_sort", "banded_bp",
                                              "banded_general")}
-    sizes = sorted_histogram(launches.size_histogram("radix_sort"))
+    sizes = sorted_histogram(trace.size_histogram("radix_sort"))
     stages = rd.manifest["stages"]
     for stage in FULL_STAGES:
         rec = stages[stage]
@@ -1866,7 +1866,7 @@ def long_compare_run(device: str) -> tuple:
     """One of phase 9b's runs: run_full through the port on `device` over
     long_cmp_inputs (save_inputs) with an assisting reference, in
     CMP_DIR / device: (run dir, launches by stage, wall s)."""
-    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch import trace
     from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
     from allpathslg_tpu_torch.pipeline.rundir import RunDir
     from allpathslg_tpu_torch.pipeline.stages import Pipeline
@@ -1880,12 +1880,12 @@ def long_compare_run(device: str) -> tuple:
     save_inputs(rd, inputs)
     pipe = Pipeline(rd, AssemblyConfig.from_overrides(**LONG_OVERRIDES),
                     lambda *a: None, device=device)
-    launches.reset()
+    trace.reset()
     t0 = time.perf_counter()
     pipe.run_full()
     if device == "cuda":
         torch.cuda.synchronize()
-    return rd, launches.by_stage(), time.perf_counter() - t0
+    return rd, trace.by_stage(), time.perf_counter() - t0
 
 
 def phase_long_compare(cpu_wall: float):
@@ -2084,7 +2084,7 @@ def phase_cli_compare(seed: int, cpu_wall: float):
     against the CPU's run of cpu_runs, made before; every file, array,
     stage metric and check/CHEAT log line compared. Returns the card
     run's launches by stage."""
-    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch import trace
     from allpathslg_tpu_torch.pipeline.rundir import RunDir
 
     base = CLI_DIR
@@ -2096,9 +2096,9 @@ def phase_cli_compare(seed: int, cpu_wall: float):
                for k, v in libs.items()}
     capture = DPCapture()
     capture.KEEP = 1 << 30            # every call
-    launches.reset()
+    trace.reset()
     wall = cli_run(seed, "cuda", capture)
-    card = launches.by_stage()
+    card = trace.by_stage()
     say(f"[cli] inputs: {n_bases} N bases within reads ({N_BASE_RATE} of "
         f"bases, {N_TAIL_READS} of reads ending in 5-10 N); run_full from "
         f"sheets through pipeline.run.main with check_mode and CHEAT: card "
@@ -2211,7 +2211,7 @@ def _tool(argv) -> tuple:
 
 class LaunchStages:
     """Counts the kernel launches made inside calls to module attributes
-    under a stage of their own (ops/cuda/launches.stage)."""
+    under a stage of their own (allpathslg_tpu_torch/trace.stage)."""
 
     def __init__(self, targets):
         self.targets = targets          # [(module name, attribute, stage)]
@@ -2220,7 +2220,7 @@ class LaunchStages:
     def __enter__(self):
         import importlib
 
-        from allpathslg_tpu_torch.ops.cuda import launches
+        from allpathslg_tpu_torch import trace
 
         for module, attr, stage in self.targets:
             mod = importlib.import_module(f"allpathslg_tpu_torch.{module}")
@@ -2228,7 +2228,7 @@ class LaunchStages:
             self._saved.append((mod, attr, fn))
 
             def wrapped(*a, _fn=fn, _stage=stage, **kw):
-                with launches.stage(_stage):
+                with trace.stage(_stage):
                     return _fn(*a, **kw)
 
             setattr(mod, attr, wrapped)
@@ -2251,7 +2251,7 @@ def phase_tools(codes: np.ndarray, spectrum: torch.Tensor, seed: int):
     from allpathslg_tpu_torch.io import fasta
     from allpathslg_tpu_torch.kmer import spectrum as kspec
     from allpathslg_tpu_torch.models import flagship
-    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch import trace
 
     d = ROOT / "build" / "chip_smoke_tools"
     shutil.rmtree(d, ignore_errors=True)
@@ -2259,7 +2259,7 @@ def phase_tools(codes: np.ndarray, spectrum: torch.Tensor, seed: int):
     total = {}
 
     def count(tag):
-        by = launches.by_stage()
+        by = trace.by_stage()
         for kernels in by.values():
             for k, n in kernels.items():
                 total[k] = total.get(k, 0) + n
@@ -2276,7 +2276,7 @@ def phase_tools(codes: np.ndarray, spectrum: torch.Tensor, seed: int):
         got.append(out[0].cpu())
         return out
 
-    launches.reset()
+    trace.reset()
     flagship.spectrum_step = keep
     try:
         out, secs = _tool(["kspec", str(d / "flagship.fastq"), "--k",
@@ -2307,7 +2307,7 @@ def phase_tools(codes: np.ndarray, spectrum: torch.Tensor, seed: int):
     n = ALIGN_READS
     rcodes = np.asarray(rb.codes)[:n]
     write_fastq(d / "reads.fastq", rcodes, np.asarray(rb.quals)[:n], b"r")
-    launches.reset()
+    trace.reset()
     out, secs = _tool(["align", str(d / "reads.fastq"),
                        str(d / "contigs.fasta")])
     by = count("align")
@@ -2340,7 +2340,7 @@ def phase_tools(codes: np.ndarray, spectrum: torch.Tensor, seed: int):
         insert_sd=20, error_rate=0.004, seed=seed + 82)
     write_fastq(d / "long.fastq", np.asarray(lb.codes), np.asarray(lb.quals),
                 b"l")
-    launches.reset()
+    trace.reset()
     with LaunchStages((("long.friends", "find_friends", "friends"),
                        ("kmer.count", "count_reads_streaming", "count"))):
         out, secs = _tool(["longproto", str(d / "long.fastq"), "--out",
@@ -2378,7 +2378,7 @@ class StageTimer:
     def install(self):
         import importlib
 
-        from allpathslg_tpu_torch.ops.cuda import launches
+        from allpathslg_tpu_torch import trace
 
         for module, attr in self.targets:
             mod = importlib.import_module(f"allpathslg_tpu_torch.{module}")
@@ -2392,7 +2392,7 @@ class StageTimer:
                 finally:
                     torch.cuda.synchronize()
                     dt = time.perf_counter() - t0
-                    key = (launches.current_stage(), _name)
+                    key = (trace.current_stage(), _name)
                     with self._lock:
                         tot = self.totals.setdefault(key, [0.0, 0])
                         tot[0] += dt
@@ -2427,7 +2427,7 @@ def phase_diploid(genome_size: int, capture: DPCapture):
     genome (REPEAT_FAMILIES) with an assisting reference, ploidy=2, with
     `capture` installed; returns each kernel's launches in the run."""
     from allpathslg_tpu_torch.eval import accuracy as eacc
-    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch import trace
     from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
     from allpathslg_tpu_torch.pipeline.rundir import RunDir
     from allpathslg_tpu_torch.pipeline.stages import Pipeline
@@ -2453,7 +2453,7 @@ def phase_diploid(genome_size: int, capture: DPCapture):
     cfg = AssemblyConfig.from_overrides(ploidy=2, assist_ref=str(ref))
     pipe = Pipeline(rd, cfg, lambda *a: None, device="cuda")
     timer = StageTimer(LONG_READ_TIMED)
-    launches.reset()
+    trace.reset()
     capture.install()
     timer.install()
     try:
@@ -2464,8 +2464,8 @@ def phase_diploid(genome_size: int, capture: DPCapture):
     finally:
         timer.remove()
         capture.remove()
-    by_stage = launches.by_stage()
-    total = {k: launches.count(k) for k in ("radix_sort", "banded_bp",
+    by_stage = trace.by_stage()
+    total = {k: trace.count(k) for k in ("radix_sort", "banded_bp",
                                              "banded_general")}
     stages = rd.manifest["stages"]
     for stage in LONG_STAGES:
@@ -2817,12 +2817,12 @@ def lib_ulinks(seed: int) -> int:
     the card == the CPU byte for byte. Returns the sort kernel's
     launches."""
     from allpathslg_tpu_torch.native import build as native_build
-    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch import trace
 
-    launches.reset()
+    trace.reset()
     ups, rp, lg, seeds, nh, secs, n_keys = ulinks_chain(
         repeat_genome(ULINKS_GENOME, seed + 124), "cuda", seed + 125)
-    n_sort = launches.count("radix_sort")
+    n_sort = trace.count("radix_sort")
     check(n_sort > 0, "ulinks: the sort kernel never launched")
     check(n_keys >= native_build.NATIVE_SORT_MIN, f"ulinks: {n_keys} link "
           f"keys < {native_build.NATIVE_SORT_MIN}: the native sort never ran")
@@ -2956,17 +2956,17 @@ def lib_ultra() -> int:
     launches in the criterion run."""
     from allpathslg_tpu_torch.eval import sim
     from allpathslg_tpu_torch.long import ultra
-    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch import trace
 
     timer = StageTimer(ULTRA_TIMED)
     timer.install()
-    launches.reset()
+    trace.reset()
     try:
         with LaunchStages((("long.ultra", "friend_hits", "friends"),)):
             totals = ultra_criterion(timer)
     finally:
         timer.remove()
-    by = launches.by_stage()
+    by = trace.by_stage()
     n_sort = sum(k.get("radix_sort", 0) for k in by.values())
     check(by.get("friends", {}).get("radix_sort", 0) > 0,
           "ultra: the sort kernel never launched in friend_hits")
@@ -3059,13 +3059,13 @@ class SortLaunches:
             self.hist[k] = self.hist.get(k, 0) + v
 
     def run(self, fn):
-        from allpathslg_tpu_torch.ops.cuda import launches
+        from allpathslg_tpu_torch import trace
 
-        launches.reset()
+        trace.reset()
         out = fn()
         torch.cuda.synchronize()
-        self.add(launches.count("radix_sort"),
-                 launches.size_histogram("radix_sort"))
+        self.add(trace.count("radix_sort"),
+                 trace.size_histogram("radix_sort"))
         return out
 
 
@@ -3276,7 +3276,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 pid, port, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-from allpathslg_tpu_torch.ops.cuda import launches
+from allpathslg_tpu_torch import trace
 from allpathslg_tpu_torch.parallel import multihost as mh
 from allpathslg_tpu_torch.parallel.dist_count import distributed_spectrum
 mh.initialize(coordinator=f"127.0.0.1:{port}", num_processes=2,
@@ -3286,7 +3286,7 @@ assert (mesh.size, mesh.rank, mesh.backend) == (8, pid, "gloo"), mesh
 codes = np.load(d + "/codes.npy")
 rows = codes.shape[0] // 2
 local = mh.host_batch_to_global(codes[pid * rows:(pid + 1) * rows], mesh)
-launches.reset()
+trace.reset()
 t0 = time.perf_counter()
 spec, dropped, _, _, nu = distributed_spectrum(mesh, local, K=24)
 torch.cuda.synchronize()
@@ -3296,8 +3296,8 @@ dist.all_gather(parts, nu.cpu())
 np.savez(f"{d}/out{pid}.npz", spec=spec.cpu().numpy(),
          nu=torch.cat(parts).numpy())
 print(json.dumps({"pid": pid, "dropped": int(dropped), "secs": secs,
-                  "launches": launches.count("radix_sort"),
-                  "sizes": launches.size_histogram("radix_sort")}),
+                  "launches": trace.count("radix_sort"),
+                  "sizes": trace.size_histogram("radix_sort")}),
       flush=True)
 dist.destroy_process_group()
 """
@@ -3624,17 +3624,17 @@ def grouped_attempt(fn):
     """Runs count_grouped on 2-word keys through fn() and names what
     returned, from the launches it made: each grouping attempt is 2 row
     sorts and one sample sort; the flat fallback adds count_sorted's sort."""
-    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch import trace
 
-    launches.reset()
+    trace.reset()
     out = fn()
     torch.cuda.synchronize()
-    rows = launches.count("row_sort")
+    rows = trace.count("row_sort")
     attempts = rows // 2
     check(attempts >= 1 and rows == 2 * attempts,
           f"count_grouped made {rows} row sorts")
     return out, (f"attempt {attempts}"
-                 if launches.count("radix_sort") == attempts
+                 if trace.count("radix_sort") == attempts
                  else f"flat fallback after {attempts} attempts")
 
 
@@ -3644,14 +3644,14 @@ def count_engines(codes: np.ndarray, spectrum: torch.Tensor) -> dict:
     count_sorted. Returns the launches of both kernels."""
     from allpathslg_tpu_torch.kmer import count as kcount, kmerize
     from allpathslg_tpu_torch.ops import bucket_count
-    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch import trace
 
     cuda_codes = torch.from_numpy(codes).cuda()
     with mock.patch.dict(os.environ, {"APLG_COUNT_ENGINE": "bucketed"}):
-        launches.reset()
+        trace.reset()
         spec, nu = kcount.spectrum_reads_auto(cuda_codes, FLAGSHIP_K)
         torch.cuda.synchronize()
-    rows, flat_sorts = launches.count("row_sort"), launches.count("radix_sort")
+    rows, flat_sorts = trace.count("row_sort"), trace.count("radix_sort")
     check(torch.equal(spec.cpu(), spectrum) and int(nu) == int(spectrum.sum()),
           "spectrum_reads_auto (bucketed) != phase 4's spectrum")
     check(rows == 2 and flat_sorts == 1,
@@ -3660,11 +3660,11 @@ def count_engines(codes: np.ndarray, spectrum: torch.Tensor) -> dict:
     launched = {"row_sort": rows, "radix_sort": flat_sorts}
 
     def counted(fn):
-        launches.reset()
+        trace.reset()
         out = fn()
         torch.cuda.synchronize()
         for k in launched:
-            launched[k] += launches.count(k)
+            launched[k] += trace.count(k)
         return out
 
     flat24 = kcount._kmer_flat(cuda_codes, FLAGSHIP_K)

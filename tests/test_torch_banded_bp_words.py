@@ -343,7 +343,8 @@ def test_dp_capture_counts_keeps_and_restores():
     with their outputs, and the module attributes restored on removal."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
-    from allpathslg_tpu_torch.ops.cuda import banded_general_cuda, launches
+    from allpathslg_tpu_torch import trace
+    from allpathslg_tpu_torch.ops.cuda import banded_general_cuda
 
     originals = (banded_cuda.banded_align_bp,
                  banded_general_cuda.banded_align_general)
@@ -351,12 +352,12 @@ def test_dp_capture_counts_keeps_and_restores():
     cap = chip_smoke.DPCapture()
     cap.install()
     try:
-        with launches.stage("align_frags"):
+        with trace.stage("align_frags"):
             for _ in range(3):
                 arrays = [torch.from_numpy(a) for a in
                           _batch(rng, 32, 40, 56, 8, "plain")]
                 banded_cuda.banded_align_bp(*arrays, band=8)
-        with launches.stage("patch_gaps"):
+        with trace.stage("patch_gaps"):
             arrays = [torch.from_numpy(a) for a in
                       _batch(rng, 8, 30, 90, 8, "plain")]
             banded_general_cuda.banded_align_general(*arrays, band=24)

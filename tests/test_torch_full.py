@@ -222,19 +222,19 @@ def test_launch_counts_by_stage_under_threads():
     import sys
     import threading
 
-    from allpathslg_tpu_torch.ops.cuda import launches
+    from allpathslg_tpu_torch import trace
 
     n_threads, n_each = 16, 2000
 
     def work(i):
-        with launches.stage(f"stage{i % 4}"):
+        with trace.stage(f"stage{i % 4}"):
             for _ in range(n_each):
-                launches.record("k_test")
+                trace.record("k_test")
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        launches.reset("k_test")
+        trace.reset("k_test")
         threads = [threading.Thread(target=work, args=(i,))
                    for i in range(n_threads)]
         for t in threads:
@@ -244,10 +244,10 @@ def test_launch_counts_by_stage_under_threads():
         assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(old)
-    assert launches.count("k_test") == n_threads * n_each
-    per = launches.by_stage()
+    assert trace.count("k_test") == n_threads * n_each
+    per = trace.by_stage()
     for s in range(4):
         assert per[f"stage{s}"]["k_test"] == n_threads // 4 * n_each
     assert "k_test" not in per.get(None, {})
-    launches.reset("k_test")
-    assert launches.count("k_test") == 0
+    trace.reset("k_test")
+    assert trace.count("k_test") == 0

@@ -27,7 +27,7 @@ pytest.importorskip("jax")
 import chip_smoke as cs  # noqa: E402
 from allpathslg_tpu.pipeline.rundir import RunDir as RRunDir  # noqa: E402
 from allpathslg_tpu_torch.ops import banded as tbanded  # noqa: E402
-from allpathslg_tpu_torch.ops.cuda import launches  # noqa: E402
+from allpathslg_tpu_torch import trace  # noqa: E402
 from allpathslg_tpu_torch.pipeline.config import AssemblyConfig as TConfig  # noqa: E402
 from allpathslg_tpu_torch.pipeline.rundir import RunDir as TRunDir  # noqa: E402
 from allpathslg_tpu_torch.pipeline.stages import Pipeline as TPipeline  # noqa: E402
@@ -83,7 +83,7 @@ def both(tmp_path_factory):
     orig = tbanded.banded_align_auto
 
     def logged(q, q_len, t, t_len, offset, band=16, **kw):
-        calls.append((launches.current_stage(), band, tuple(q.shape),
+        calls.append((trace.current_stage(), band, tuple(q.shape),
                       tuple(t.shape)))
         return orig(q, q_len, t, t_len, offset, band=band, **kw)
 

@@ -63,7 +63,6 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.ops.bucket_count",
     "allpathslg_tpu_torch.ops.cuda.banded_cuda",
     "allpathslg_tpu_torch.ops.cuda.banded_general_cuda",
-    "allpathslg_tpu_torch.ops.cuda.launches",
     "allpathslg_tpu_torch.ops.cuda.nvcc",
     "allpathslg_tpu_torch.ops.cuda.row_sort_cuda",
     "allpathslg_tpu_torch.ops.cuda.sort_cuda",
@@ -86,6 +85,7 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.scaffold.scaffolder",
     "allpathslg_tpu_torch.scaffold.superb",
     "allpathslg_tpu_torch.tools",
+    "allpathslg_tpu_torch.trace",
     "allpathslg_tpu_torch.tune_count",
     "allpathslg_tpu_torch.tuning",
     "allpathslg_tpu_torch.utils.intdist",
@@ -95,7 +95,7 @@ REFERENCE_MODULES = [m.replace("allpathslg_tpu_torch", "allpathslg_tpu")
                      for m in PORT_MODULES
                      if m.split(".")[-1] not in (
                          "convert", "sort_cuda", "banded_cuda",
-                         "banded_general_cuda", "launches", "nvcc",
+                         "banded_general_cuda", "trace", "nvcc",
                          "row_sort_cuda", "tune_count")] + [
     "allpathslg_tpu.ops.pallas.sort_pallas",
     "allpathslg_tpu.ops.pallas.banded_bp",
