@@ -5,7 +5,8 @@ Behavior contract (ref: src/paths/FixSomeIndels.cc / FixLocal — SURVEY.md
 §2.5 row 19): align reads back to the assembly, pile up per-column votes,
 and repair positions where the read consensus contradicts the contig.
 
-Substitution pass: per-column majority vote (vectorized bincount).
+Substitution pass: per-column majority vote over the pileup's base votes
+(counted on the card by a Hopper kernel, ops/cuda/pileup_cuda).
 Indel pass: columns where the pileup DISAGREES without a clean winner are
 the signature of a 1–2 bp indel (gap-free alignments shift downstream of
 it, scattering the votes). For each suspect column a set of candidate
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from allpathslg_tpu_torch import trace
+from allpathslg_tpu_torch.ops.cuda import pileup_cuda
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,66 +41,72 @@ class PolishConfig:
     indel_margin: int = 2       # best variant must beat original by this
 
 
+def _placed_by_start(offsets: np.ndarray, lengths: np.ndarray, al_contig,
+                     al_anchor, al_rc, al_ok) -> Tuple[np.ndarray, np.ndarray]:
+    """(ids, starts): the placed reads, sorted stably by the leftmost global
+    position each can cover, and those positions (int64)."""
+    gstart = np.asarray(offsets[:-1], np.int64)
+    ids = np.nonzero(np.asarray(al_ok))[0]
+    anc0 = np.asarray(al_anchor)[ids].astype(np.int64)
+    last = np.asarray(lengths)[ids].astype(np.int64) - 1
+    starts = gstart[np.asarray(al_contig)[ids]] + np.where(
+        np.asarray(al_rc)[ids], anc0 - last, anc0)
+    order = np.argsort(starts, kind="stable")
+    return ids[order], starts[order]
+
+
+def _pileup_inputs(offsets: np.ndarray, codes: np.ndarray,
+                   lengths: np.ndarray, al_contig, al_anchor, al_rc,
+                   ids: np.ndarray, starts: np.ndarray, device) -> list:
+    """The arguments of ops/cuda/pileup_cuda.pileup before the segment, as
+    tensors on `device`: the reads `ids` (sorted by `starts`), their rows
+    of `codes` and their alignlets gathered on the host."""
+    dev = torch.device(device)
+    return [torch.from_numpy(np.ascontiguousarray(a, t)).to(dev)
+            for a, t in ((offsets, np.int64), (codes[ids], np.uint8),
+                         (np.asarray(lengths)[ids], np.int32),
+                         (np.asarray(al_contig)[ids], np.int32),
+                         (np.asarray(al_anchor)[ids], np.int32),
+                         (np.asarray(al_rc)[ids], np.bool_),
+                         (starts, np.int64))]
+
+
 def _pileup_segments(offsets: np.ndarray, codes: np.ndarray,
                      lengths: np.ndarray, al_contig, al_anchor, al_rc, al_ok,
-                     seg: int = 8 << 20, chunk: int = 262144):
-    """Yield (s0, s1, votes[s1-s0, 4]) over genome-position segments.
+                     seg: int = 8 << 20, device="cuda"):
+    """Yield (s0, s1, votes[s1-s0, 4] int32) over genome-position segments.
 
-    Out-of-core pileup: alignlets are sorted by their global start
-    position once, then each segment scans only its overlapping alignlet
-    range, so peak memory is ~seg*32 B regardless of genome size.
-    codes/lengths may be np.memmap views; rows page in per chunk."""
-    total = int(offsets[-1])
-    gstart = np.asarray(offsets[:-1], np.int64)
-    gend = np.asarray(offsets[1:], np.int64)
-    lengths = np.asarray(lengths)
-    al_contig = np.asarray(al_contig)
-    al_anchor = np.asarray(al_anchor)
-    al_rc = np.asarray(al_rc)
-    ok = np.asarray(al_ok)
-    idx_all = np.nonzero(ok)[0]
+    The placed reads are sorted by leftmost position once, on the host
+    (_placed_by_start). For each segment, only the rows of the reads that
+    can reach it are read from `codes` (which may be memory-mapped) and go
+    to `device` with their alignlets (_pileup_inputs); the votes are
+    counted there by ops/cuda/pileup_cuda.pileup (the Hopper kernel on a
+    CUDA device, the plain version on the CPU), and only they come back.
+    So what a segment holds is its own reads and votes, not the genome's;
+    the host keeps two arrays of the placed reads' count besides."""
+    ids, starts = _placed_by_start(offsets, lengths, al_contig, al_anchor,
+                                   al_rc, al_ok)
     L = codes.shape[1]
-    j = np.arange(L, dtype=np.int64)[None, :]
-    # sort alignlets by leftmost covered global position
-    anc0 = al_anchor[idx_all].astype(np.int64)
-    gmin = gstart[al_contig[idx_all]] + np.where(
-        al_rc[idx_all], anc0 - (lengths[idx_all].astype(np.int64) - 1), anc0)
-    order = np.argsort(gmin, kind="stable")
-    idx_all = idx_all[order]
-    gmin = gmin[order]
+    total = int(offsets[-1])
     for s0 in range(0, total, seg):
         s1 = min(s0 + seg, total)
-        lo = np.searchsorted(gmin, s0 - L)
-        hi = np.searchsorted(gmin, s1)
-        votes = np.zeros((s1 - s0) * 4, np.int64)
-        for s in range(lo, hi, chunk):
-            idx = idx_all[s : min(s + chunk, hi)]
-            sel_len = lengths[idx][:, None]
-            anchor = al_anchor[idx].astype(np.int64)[:, None]
-            rc = al_rc[idx][:, None]
-            tpos = np.where(rc, anchor - j, anchor + j)
-            base = np.asarray(codes[idx]).astype(np.int64)
-            base = np.where(rc & (base < 4), 3 - base, base)
-            cs = gstart[al_contig[idx]][:, None]
-            gpos = cs + tpos
-            cend = gend[al_contig[idx]][:, None]
-            valid = (j < sel_len) & (base < 4) & (gpos >= cs) \
-                & (gpos < cend) & (gpos >= s0) & (gpos < s1)
-            # bincount on (pos*4+base) is ~20x faster than np.add.at scatter
-            votes += np.bincount((gpos[valid] - s0) * 4 + base[valid],
-                                 minlength=(s1 - s0) * 4)
-        yield s0, s1, votes.reshape(-1, 4).astype(np.int32)
+        lo, hi = np.searchsorted(starts, [s0 - L, s1])
+        args = _pileup_inputs(offsets, codes, lengths, al_contig, al_anchor,
+                              al_rc, ids[lo:hi], starts[lo:hi], device)
+        votes = pileup_cuda.pileup(*args, s0, s1)
+        yield s0, s1, votes.cpu().numpy()
 
 
 def _pileup_votes(offsets: np.ndarray, codes: np.ndarray,
                   lengths: np.ndarray, al_contig, al_anchor, al_rc, al_ok,
-                  chunk: int = 262144) -> np.ndarray:
+                  seg: int = 8 << 20, device="cuda") -> np.ndarray:
     """Dense per-column base votes [total, 4] — small-assembly convenience
     wrapper over _pileup_segments (tests, toy scale)."""
     total = int(offsets[-1])
     out = np.zeros((total, 4), np.int32)
     for s0, s1, v in _pileup_segments(offsets, codes, lengths, al_contig,
-                                      al_anchor, al_rc, al_ok, chunk=chunk):
+                                      al_anchor, al_rc, al_ok, seg=seg,
+                                      device=device):
         out[s0:s1] = v
     return out
 
@@ -106,9 +114,10 @@ def _pileup_votes(offsets: np.ndarray, codes: np.ndarray,
 def polish_contigs(flat_bases: np.ndarray, offsets: np.ndarray,
                    codes: np.ndarray, lengths: np.ndarray,
                    al_contig, al_anchor, al_rc, al_ok,
-                   cfg: PolishConfig = PolishConfig()
+                   cfg: PolishConfig = PolishConfig(), device="cuda"
                    ) -> Tuple[np.ndarray, int]:
-    """Returns (polished flat bases, n_changed)."""
+    """Returns (polished flat bases, n_changed). The votes are counted on
+    `device` (the pileup kernel on a CUDA device)."""
     total = int(offsets[-1])
     if total == 0 or not np.asarray(al_ok).any():
         return flat_bases, 0
@@ -117,7 +126,7 @@ def polish_contigs(flat_bases: np.ndarray, offsets: np.ndarray,
     with trace.span("polish.pileup") as sp:
         for s0, s1, votes in _pileup_segments(offsets, codes, lengths,
                                               al_contig, al_anchor, al_rc,
-                                              al_ok):
+                                              al_ok, device=device):
             sp.add("passes")
             support = votes.sum(1)
             winner = votes.argmax(1)
@@ -170,8 +179,8 @@ def polish_indels(flat_bases: np.ndarray, offsets: np.ndarray,
     """Indel repair pass (ref: FixSomeIndels). Returns (new flat bases,
     new offsets, n_indels_fixed, edit_rows) where edit_rows lists
     (contig, pos, old_len, new_len) for ambiguity-table remapping. The
-    variant-scoring DP runs on `device` (band 6, unit costs: the
-    bit-parallel kernel on a CUDA tensor)."""
+    pileup and the variant-scoring DP run on `device` (band 6, unit costs:
+    the bit-parallel kernel on a CUDA tensor)."""
     from allpathslg_tpu_torch.asm.patch import _AlignIndex, _rc as _rcseq
     from allpathslg_tpu_torch.ops import banded
 
@@ -195,7 +204,7 @@ def polish_indels(flat_bases: np.ndarray, offsets: np.ndarray,
     with trace.span("polish.pileup") as sp:
         for s0, s1, votes in _pileup_segments(offsets, codes, lengths,
                                               al_contig, al_anchor, al_rc,
-                                              ok):
+                                              ok, device=device):
             sp.add("passes")
             support = votes.sum(1)
             win_n = votes.max(1)

@@ -1252,7 +1252,8 @@ class Pipeline:
                 m = self._align_arrays(u["bases"], u["offsets"], fr)
             bases, n_changed = apol.polish_contigs(
                 u["bases"], u["offsets"], fr["codes"], fr["lengths"],
-                m["contig"], m["anchor"], m["is_rc"], m["aligned"])
+                m["contig"], m["anchor"], m["is_rc"], m["aligned"],
+                device=self.device)
             # indel pass (ref: FixSomeIndels): contested-pileup suspects,
             # banded-DP variant scoring, re-polish substitutions after
             bases, offsets, n_indel, edit_rows = apol.polish_indels(
@@ -1266,7 +1267,8 @@ class Pipeline:
                     m2 = self._align_arrays(bases, offsets, fr)
                 bases, n_changed2 = apol.polish_contigs(
                     bases, offsets, fr["codes"], fr["lengths"],
-                    m2["contig"], m2["anchor"], m2["is_rc"], m2["aligned"])
+                    m2["contig"], m2["anchor"], m2["is_rc"], m2["aligned"],
+                    device=self.device)
                 n_changed += n_changed2
             else:
                 offsets = u["offsets"]

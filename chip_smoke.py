@@ -9,10 +9,10 @@ Needs one CUDA GPU (it raises without one) and `nvcc`; it imports nothing
 of JAX or of the JAX package. Phases, each printed as it ends:
 
   1. the card: `nvidia-smi` name and power limit, torch's device name;
-  2. build the four Hopper kernels, the radix sort (csrc/radix_sort.cu),
+  2. build the five Hopper kernels, the radix sort (csrc/radix_sort.cu),
      the batched row sort (csrc/row_sort.cu), the bit-parallel banded DP
-     (csrc/banded_bp.cu) and the general banded DP
-     (csrc/banded_general.cu), and the chain probes
+     (csrc/banded_bp.cu), the general banded DP (csrc/banded_general.cu)
+     and polish's pileup (csrc/pileup.cu), and the chain probes
      (csrc/chain_probe.cu), with nvcc for sm_90a, one nvcc for each,
      started together; then chain_terms: the latency of one dependent DPX
      instruction and the device time of an empty launch, which the general
@@ -59,6 +59,13 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      12,000 x 12,000 (16 real rows) band 192; kernel (device_ms) and plain
      version (median_ms) in turns at (1, band 96), (3), (5), (6) and (9),
      each with its bound and the bound's three terms (general_bound);
+ 6b. polish's pileup kernel (csrc/pileup.cu) on pileup_reads, the shape
+     of a 400 kb assembly (~88,000 placed reads of 101-203 bases): its
+     votes against the plain version's, exactly, in one segment, and
+     polish's segment loop on the card against the CPU in 7 segments of
+     PILEUP_SEG (one launch each); the kernel's device time (device_ms)
+     against its byte bound (pileup_bound_ms), and a whole pass of
+     polish's pileup on the card and on the CPU;
   7. the contig slice and align_frags through Pipeline(device="cuda")
      with profile_dir set, so every stage runs under torch.profiler (CPU
      and CUDA activities) and writes its Chrome trace:
@@ -94,6 +101,8 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      prepare_inputs are printed. It prints each
      stage's wall time from the manifest and each kernel's launches by
      stage, and checks that the general kernel ran, in patch_gaps only;
+     that the pileup kernel ran in polish only, once a pass (2, or 3 when
+     an indel was fixed);
      that the bit-parallel kernel ran in align_frags and align_jumps; that
      the jump insert estimate is within 10 % of 3000; that patch_gaps
      closed a gap; that the final assembly covers >= 95 % of the genome;
@@ -230,7 +239,7 @@ of JAX or of the JAX package. Phases, each printed as it ends:
      process: both engines' ms a batch and M k-mers/s on this card, and
      no tuning file written.
 
-With --only, phases 1-6 and the listed ones run (a rehearsal; 13 runs 8
+With --only, phases 1-6b and the listed ones run (a rehearsal; 13 runs 8
 first, whose run dir it reuses); without it, every phase. Each phase prints its seconds. Any failed check raises,
 so the exit code is not 0. The line before the last is the kernel record {"kernels":
 [...]}, whose `launches` are each kernel's launches in the pipeline
@@ -258,7 +267,9 @@ lists for phase 10's timed batches of long_read_patch and assisted. The
 row sort's ms, plain_ms, library_ms and bound_ms are those of the
 flagship's K=24 tiles (127 x 131,072), with each shape of (a) under
 `shapes`, its device ms by kernel under split_*_ms, and the tuner's two
-engines beside them. The
+engines beside them. The pileup's ms and bound_ms are phase 6b's one
+segment of 400 kb, with pass_ms and plain_pass_ms a whole pass on the
+card and on the CPU. The
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -433,11 +444,11 @@ def phase_build():
 
     from allpathslg_tpu_torch.ops.cuda import (banded_cuda,
                                                banded_general_cuda,
-                                               chain_probe, row_sort_cuda,
-                                               sort_cuda)
+                                               chain_probe, pileup_cuda,
+                                               row_sort_cuda, sort_cuda)
 
     mods = (sort_cuda, row_sort_cuda, banded_cuda, banded_general_cuda,
-            chain_probe)
+            chain_probe, pileup_cuda)
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(), mods))
     for mod, (path, secs) in zip(mods, built):
@@ -1053,6 +1064,100 @@ def true_kmer_frac(codes: np.ndarray, genome_kmers: np.ndarray, K: int,
     return round(float(hit.sum()) / max(int(valid.sum()), 1), 5)
 
 
+# Phase 6b: polish's pileup at the shape of a 400 kb assembly
+PILEUP_GENOME, PILEUP_READS, PILEUP_LEN = 400_000, 90_000, 203
+PILEUP_SEG = 65_536   # the across-segments check: 7 segments, one ragged
+
+
+def pileup_reads(genome_size: int, n: int, L: int, seed: int):
+    """polish's pileup inputs (offsets, codes, lengths, contig, anchor, rc,
+    ok): contigs of 4-24 kb summing to genome_size, n reads of L/2 to L
+    bases placed on them, half reverse-complemented, 3 % of bases N-like,
+    98 % placed (the others with a contig and an anchor no contig has)."""
+    rng = np.random.default_rng(seed)
+    cl = rng.integers(4_000, 24_000, max(1, genome_size // 13_000))
+    cl = np.maximum(cl * genome_size // cl.sum(), 1).astype(np.int64)
+    offsets = np.zeros(len(cl) + 1, np.int64)
+    np.cumsum(cl, out=offsets[1:])
+    lengths = rng.integers(L // 2, L + 1, n).astype(np.int32)
+    contig = rng.integers(0, len(cl), n).astype(np.int32)
+    hi = np.maximum(cl[contig] - lengths, 1)
+    start = (rng.random(n) * hi).astype(np.int64)
+    rc = rng.random(n) < 0.5
+    anchor = np.where(rc, start + lengths - 1, start).astype(np.int32)
+    codes = rng.integers(0, 4, (n, L)).astype(np.uint8)
+    codes[rng.random((n, L)) < 0.03] = 4
+    ok = rng.random(n) < 0.98
+    contig[~ok] = -1
+    anchor[~ok] = 2**31 - 1
+    return offsets, codes, lengths, contig, anchor, rc, ok
+
+
+def pileup_bound_ms(lengths, ok, row_len: int, columns: int) -> float:
+    """The pileup kernel's least time: its bytes over 3.35 TB/s, each base
+    of a placed read read once, 13 B of alignlet a placed read (length,
+    contig, anchor, rc) and 16 B a column written."""
+    placed = np.minimum(np.asarray(lengths)[np.asarray(ok)], row_len)
+    nbytes = int(placed.sum()) + 13 * len(placed) + 16 * columns
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_pileup(seed: int) -> dict:
+    """Phase 6b: the pileup kernel (csrc/pileup.cu) on pileup_reads at
+    400 kb. Its votes must equal the plain version's, exactly, in one
+    segment and through polish's segment loop in PILEUP_SEG segments (one
+    launch a segment). Then its device time (device_ms) against its bound,
+    and a whole pass of polish's pileup (the host sort and gather, the
+    copies up, the kernel, the votes back) on the card and on the CPU."""
+    from allpathslg_tpu_torch import trace
+    from allpathslg_tpu_torch.asm import polish
+    from allpathslg_tpu_torch.ops.cuda import pileup_cuda
+
+    arrays = pileup_reads(PILEUP_GENOME, PILEUP_READS, PILEUP_LEN, seed)
+    offsets, codes, lengths, contig, anchor, rc, ok = arrays
+    total = int(offsets[-1])
+    ids, starts = polish._placed_by_start(offsets, lengths, contig, anchor,
+                                          rc, ok)
+    dargs = polish._pileup_inputs(*arrays[:-1], ids, starts, device="cuda")
+    got = pileup_cuda.pileup(*dargs, 0, total).cpu()
+    want = pileup_cuda.pileup_plain(*[a.cpu() for a in dargs], 0, total)
+    err = int((got - want).abs().max())
+    check(err == 0, f"pileup kernel != plain version at {total} columns: "
+          f"max abs err {err}")
+    trace.reset()
+    card = polish._pileup_votes(*arrays, seg=PILEUP_SEG, device="cuda")
+    launches = trace.count("pileup")
+    cpu = polish._pileup_votes(*arrays, seg=PILEUP_SEG, device="cpu")
+    n_seg = -(-total // PILEUP_SEG)
+    check(np.array_equal(card, cpu), f"polish's pileup in {n_seg} "
+          f"segments: card != CPU")
+    check(launches == n_seg, f"{launches} pileup launches for {n_seg} "
+          f"segments")
+    ms = device_ms(lambda: pileup_cuda.pileup(*dargs, 0, total))
+    bound = pileup_bound_ms(lengths, ok, PILEUP_LEN, total)
+
+    def pass_ms(device, reps):
+        took = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            polish._pileup_votes(*arrays, device=device)
+            took.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(took))
+
+    pass_card = pass_ms("cuda", 10)
+    pass_cpu = pass_ms("cpu", 3)
+    say(f"[pileup] {total} columns, {len(ids)} of {len(lengths)} reads "
+        f"placed, rows of {PILEUP_LEN}: kernel == plain (one segment); "
+        f"card == CPU in {n_seg} segments, {launches} launches; kernel "
+        f"{ms:.4f} ms, bound {bound:.4f} ms (bytes), "
+        f"{bound / ms * 100:.1f} % of it; a pass {pass_card:.1f} ms on the "
+        f"card, {pass_cpu:.1f} ms on the CPU (plain)")
+    return {"shape": [total, len(ids), PILEUP_LEN], "max_abs_err": err,
+            "ms": ms, "bound_ms": bound, "bound_by": "bytes",
+            "pass_ms": pass_card, "plain_pass_ms": pass_cpu,
+            "segment_launches": launches}
+
+
 SLICE_STAGES = ("validate_inputs", "remove_dodgy", "precorrect",
                 "find_errors", "clean_reads", "fill_fragments", "unipaths",
                 "report", "align_frags")
@@ -1628,7 +1733,7 @@ def phase_full(genome_size: int, seed: int, capture: DPCapture,
         capture.remove()
     by_stage = trace.by_stage()
     total = {k: trace.count(k) for k in ("radix_sort", "banded_bp",
-                                             "banded_general")}
+                                             "banded_general", "pileup")}
     sizes = sorted_histogram(trace.size_histogram("radix_sort"))
     stages = rd.manifest["stages"]
     for stage in FULL_STAGES:
@@ -1651,6 +1756,12 @@ def phase_full(genome_size: int, seed: int, capture: DPCapture,
         check(by_stage.get(stage, {}).get("banded_bp", 0) > 0,
               f"{stage} never launched the bit-parallel kernel")
     m = {s: rd.metrics(s) for s in FULL_STAGES}
+    pileup_stages = {s for s, c in by_stage.items() if "pileup" in c}
+    check(pileup_stages == {"polish"}, f"pileup kernel launched in "
+          f"{pileup_stages}, expected polish only")
+    passes = 2 + (m["polish"]["n_indels_fixed"] > 0)   # one segment each
+    check(total["pileup"] == passes, f"polish launched the pileup kernel "
+          f"{total['pileup']} times in {passes} passes")
     aj = m["align_jumps"]
     check(abs(aj["insert_mean_est"] - INSERT) <= 0.1 * INSERT,
           f"jump insert estimate {aj['insert_mean_est']} not within 10% of "
@@ -2466,7 +2577,7 @@ def phase_diploid(genome_size: int, capture: DPCapture):
         capture.remove()
     by_stage = trace.by_stage()
     total = {k: trace.count(k) for k in ("radix_sort", "banded_bp",
-                                             "banded_general")}
+                                             "banded_general", "pileup")}
     stages = rd.manifest["stages"]
     for stage in LONG_STAGES:
         rec = stages[stage]
@@ -3821,7 +3932,9 @@ def main(argv=None) -> int:
     done("5 bit-parallel DP")
     general_record = phase_banded_general(args.seed, int_rate, chain)
     done("6 general DP")
-    kernels = ("radix_sort", "banded_bp", "banded_general")
+    pileup_record = phase_pileup(args.seed)
+    done("6b pileup")
+    kernels = ("radix_sort", "banded_bp", "banded_general", "pileup")
     launched = dict.fromkeys(kernels, 0)
 
     def add(counts: dict):
@@ -3926,7 +4039,12 @@ def main(argv=None) -> int:
         "replaces": "allpathslg_tpu/ops/pallas/banded_pallas.py:127",
         "launches": launched["banded_general"],
         **general_record,
-        **general_full}]}))
+        **general_full}, {
+        "name": "pileup", "route": "cuda",
+        "source": "allpathslg_tpu_torch/csrc/pileup.cu",
+        "replaces": "allpathslg_tpu/asm/polish.py:42 (host numpy)",
+        "launches": launched["pileup"],
+        **pileup_record}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -64,6 +64,7 @@ PORT_MODULES = [
     "allpathslg_tpu_torch.ops.cuda.banded_cuda",
     "allpathslg_tpu_torch.ops.cuda.banded_general_cuda",
     "allpathslg_tpu_torch.ops.cuda.nvcc",
+    "allpathslg_tpu_torch.ops.cuda.pileup_cuda",
     "allpathslg_tpu_torch.ops.cuda.row_sort_cuda",
     "allpathslg_tpu_torch.ops.cuda.sort_cuda",
     "allpathslg_tpu_torch.ops.join",
@@ -96,7 +97,7 @@ REFERENCE_MODULES = [m.replace("allpathslg_tpu_torch", "allpathslg_tpu")
                      if m.split(".")[-1] not in (
                          "convert", "sort_cuda", "banded_cuda",
                          "banded_general_cuda", "trace", "nvcc",
-                         "row_sort_cuda", "tune_count")] + [
+                         "row_sort_cuda", "pileup_cuda", "tune_count")] + [
     "allpathslg_tpu.ops.pallas.sort_pallas",
     "allpathslg_tpu.ops.pallas.banded_bp",
     "allpathslg_tpu.ops.pallas.banded_pallas",
@@ -152,6 +153,7 @@ def test_chip_smoke_fails_without_cuda_or_package(tmp_path, alone):
 
 @pytest.mark.parametrize("module,name", [
     ("align.lookup", "build_index"),
+    ("asm.polish", "polish_contigs"),
     ("asm.polish", "polish_indels"),
     ("asm.patch", "_DPBatch"),
     ("asm.patch", "patch_scaffold_gaps"),

@@ -272,7 +272,8 @@ def test_polish(genome):
     offs = np.array([0, len(contig)], np.int64)
     codes, lens = np.asarray(b.codes), np.asarray(b.lengths)
     rb, rn = rpolish.polish_contigs(contig, offs, codes, lens, *al)
-    tb, tn = tpolish.polish_contigs(contig, offs, codes, lens, *al)
+    tb, tn = tpolish.polish_contigs(contig, offs, codes, lens, *al,
+                                    device="cpu")
     assert rn == tn > 0 and np.array_equal(rb, tb)
     ref = rpolish.polish_indels(rb, offs, codes, lens, *al)
     port = tpolish.polish_indels(tb, offs, codes, lens, *al, device="cpu")
