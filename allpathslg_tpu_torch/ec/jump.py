@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from allpathslg_tpu_torch import trace
 from allpathslg_tpu_torch.dtypes import packed as _pk
 from allpathslg_tpu_torch.dtypes.reads import PAD_CODE
 from allpathslg_tpu_torch.ec import spectrum_ec as sec
@@ -62,31 +63,36 @@ def error_correct_jumps(codes, quals, lengths, pairs, table,
     fcodes = np.empty_like(codes_np)
     fquals = np.empty_like(quals_np)
     ln = np.empty(n, lens_np.dtype)
-    for s in range(0, n, batch_size):
-        e = min(s + batch_size, n)
-        cb, qb, lb = codes_np[s:e], quals_np[s:e], lens_np[s:e]
-        if e - s < batch_size:
-            pad = batch_size - (e - s)
-            cb = np.concatenate([cb, np.full((pad, L), 4, cb.dtype)])
-            qb = np.concatenate([qb, np.zeros((pad, L), qb.dtype)])
-            lb = np.concatenate([lb, np.zeros(pad, lb.dtype)])
-        dc = _pk.device_codes(cb, device)
-        dq = _pk.device_quals(qb, device)
-        dl = torch.from_numpy(np.ascontiguousarray(lb)).to(device)
-        # 1. trusted-prefix truncation at the chimeric junction: trim from
-        #    the START of the read (the sequencing end); clean_reads keeps
-        #    the leading strong span, which is the trusted prefix here
-        tcodes, tlens, _ = sec.clean_reads(dc, dl, table, ccfg)
-        # the kept span keeps the original leading quals of its length
-        # (jump quals only order dedup priority)
-        keep = (torch.arange(L, device=dq.device)[None, :]
-                < tlens[:, None])
-        tquals = torch.where(keep, dq, torch.zeros_like(dq)).to(torch.uint8)
-        # 2. flip outies -> innies
-        fc, fq = flip_reads(tcodes, tquals, tlens)
-        fcodes[s:e] = fc.cpu().numpy()[: e - s]
-        fquals[s:e] = fq.cpu().numpy()[: e - s]
-        ln[s:e] = tlens.cpu().numpy()[: e - s]
+    with trace.span("jump_ec.truncate") as sp:
+        sp.add("reads", n)
+        sp.add("bytes", codes_np.nbytes + quals_np.nbytes)
+        for s in range(0, n, batch_size):
+            e = min(s + batch_size, n)
+            cb, qb, lb = codes_np[s:e], quals_np[s:e], lens_np[s:e]
+            if e - s < batch_size:
+                pad = batch_size - (e - s)
+                cb = np.concatenate([cb, np.full((pad, L), 4, cb.dtype)])
+                qb = np.concatenate([qb, np.zeros((pad, L), qb.dtype)])
+                lb = np.concatenate([lb, np.zeros(pad, lb.dtype)])
+            dc = _pk.device_codes(cb, device)
+            dq = _pk.device_quals(qb, device)
+            dl = torch.from_numpy(np.ascontiguousarray(lb)).to(device)
+            # 1. trusted-prefix truncation at the chimeric junction: trim
+            #    from the START of the read (the sequencing end);
+            #    clean_reads keeps the leading strong span, which is the
+            #    trusted prefix here
+            tcodes, tlens, _ = sec.clean_reads(dc, dl, table, ccfg)
+            # the kept span keeps the original leading quals of its length
+            # (jump quals only order dedup priority)
+            keep = (torch.arange(L, device=dq.device)[None, :]
+                    < tlens[:, None])
+            tquals = torch.where(keep, dq,
+                                 torch.zeros_like(dq)).to(torch.uint8)
+            # 2. flip outies -> innies
+            fc, fq = flip_reads(tcodes, tquals, tlens)
+            fcodes[s:e] = fc.cpu().numpy()[: e - s]
+            fquals[s:e] = fq.cpu().numpy()[: e - s]
+            ln[s:e] = tlens.cpu().numpy()[: e - s]
 
     # 3. pair survival: both mates long enough
     p = np.asarray(pairs)
@@ -98,15 +104,19 @@ def error_correct_jumps(codes, quals, lengths, pairs, table,
     #    pick the same first pair of each duplicate set in one process
     n_dup = 0
     if cfg.dedupe and len(p):
-        pre = min(cfg.min_prefix_len, fcodes.shape[1])
-        h1 = np.array([hash(fcodes[i, :pre].tobytes()) for i in p[:, 0]])
-        h2 = np.array([hash(fcodes[i, :pre].tobytes()) for i in p[:, 1]])
-        _, first = np.unique(np.stack([h1, h2], 1), axis=0,
-                             return_index=True)
-        dup = np.ones(len(p), bool)
-        dup[first] = False
-        n_dup = int((dup & pair_ok).sum())
-        pair_ok &= ~dup
+        with trace.span("jump_ec.dedup") as sp:
+            sp.add("pairs", len(p))
+            pre = min(cfg.min_prefix_len, fcodes.shape[1])
+            h1 = np.array([hash(fcodes[i, :pre].tobytes())
+                           for i in p[:, 0]])
+            h2 = np.array([hash(fcodes[i, :pre].tobytes())
+                           for i in p[:, 1]])
+            _, first = np.unique(np.stack([h1, h2], 1), axis=0,
+                                 return_index=True)
+            dup = np.ones(len(p), bool)
+            dup[first] = False
+            n_dup = int((dup & pair_ok).sum())
+            pair_ok &= ~dup
 
     out_lens = ln.copy()
     bad_reads = np.ones(n, bool)

@@ -4,8 +4,11 @@ Replaces the reference's two-level flag system (ref: src/system/ParsedArgs.h
 `BeginCommandArguments` macros per stage + RunAllPathsLG KEY=VALUE pipeline
 overrides, SURVEY.md §5.6). The whole tree serializes into the run manifest
 for provenance, like the reference echoing its command line into logs.
-A copy of allpathslg_tpu/pipeline/config.py over the port's EC configs:
-`to_json()` is identical. n_devices > 1 runs the counting and K-table
+A copy of allpathslg_tpu/pipeline/config.py over the port's EC configs,
+with one field more: `jump_min_prefix_len`, the trusted-prefix floor of
+jump_ec, which the reference fixes at 40. `to_json()` is identical while
+that field holds 40, and names it only when it is set away from 40.
+n_devices > 1 runs the counting and K-table
 stages on a mesh (parallel/*), as in the reference. profile_dir writes torch.profiler traces instead of jax.profiler ones.
 """
 
@@ -16,6 +19,8 @@ import json
 
 from allpathslg_tpu_torch.ec.precorrect import PrecorrectConfig
 from allpathslg_tpu_torch.ec.spectrum_ec import SpectrumECConfig
+
+JUMP_FLOOR = 40                     # the reference's jump_ec floor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +33,9 @@ class AssemblyConfig:
     max_freq: int = 255             # spectrum clip
     precorrect: PrecorrectConfig = PrecorrectConfig()
     spectrum_ec: SpectrumECConfig = SpectrumECConfig()
+    jump_min_prefix_len: int = JUMP_FLOOR  # jump_ec drops a pair whose
+                                    # mates' trusted prefixes are shorter
+                                    # (32 keeps a 2x37 library's pairs)
     min_contig_len: int = 0         # 0 → 2*K default at report time
     # aux subsystems (SURVEY.md §5)
     check_mode: bool = False        # cross-validate device kernels vs numpy
@@ -59,7 +67,10 @@ class AssemblyConfig:
                                     # byte-identical to the 1-device run)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), sort_keys=True)
+        d = dataclasses.asdict(self)
+        if d["jump_min_prefix_len"] == JUMP_FLOOR:
+            del d["jump_min_prefix_len"]
+        return json.dumps(d, sort_keys=True)
 
     @staticmethod
     def from_overrides(**kw) -> "AssemblyConfig":

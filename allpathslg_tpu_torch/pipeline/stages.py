@@ -802,16 +802,22 @@ class Pipeline:
         rd = self.rd
         from allpathslg_tpu_torch.ec import jump as jec
 
-        ih = rd.hash_of("jump_ec", self._art_hash("jump_reads_orig"),
+        jcfg = self._jump_ec_config()
+        ih = rd.hash_of("jump_ec", str(jcfg),
+                        self._art_hash("jump_reads_orig"),
                         self._art_hash("frag_reads_edit"))
 
         def fn():
             if not rd.has("jump_reads_orig"):
                 return {"skipped": "no jump library"}
             a = rd.load_arrays("jump_reads_orig", mmap=True)
-            c, q, l, pair_ok, m = jec.error_correct_jumps(
-                a["codes"], a["quals"], a["lengths"], a["pairs"],
-                self._strong_table(), device=self.device)
+            with trace.span("jump_ec") as sp:
+                c, q, l, pair_ok, m = jec.error_correct_jumps(
+                    a["codes"], a["quals"], a["lengths"], a["pairs"],
+                    self._strong_table(), jcfg, device=self.device)
+                sp.add("jump.pairs_in", m["n_pairs_in"])
+                sp.add("jump.pairs_kept", m["n_pairs_kept"])
+                sp.add("jump.duplicates", m["n_duplicates"])
             rd.save_arrays("jump_reads_ec", codes=c, quals=q, lengths=l,
                            pairs=a["pairs"], pair_ok=pair_ok,
                            lib_id=a.get("lib_id",
@@ -837,8 +843,13 @@ class Pipeline:
                 return {"skipped": "no jump library"}
             u = rd.load_arrays("unibases")
             j = rd.load_arrays("jump_reads_ec", mmap=True)
-            with trace.span("align.place"):
+            with trace.span("align.place"), \
+                    trace.span("jump.place") as sp:
                 al = self._align_arrays(u["bases"], u["offsets"], j)
+                if sp is not trace.NO_SPAN:
+                    ok, p = al["aligned"], np.asarray(j["pairs"])
+                    sp.add("reads_placed", ok.sum())
+                    sp.add("pairs_placed", (ok[p[:, 0]] & ok[p[:, 1]]).sum())
             C, D, O, OK = (al[k] for k in ("contig", "anchor", "is_rc",
                                            "aligned"))
             # the true insert distribution PER LIBRARY from same-contig
@@ -875,6 +886,14 @@ class Pipeline:
                     "lib_insert_means": means, "lib_insert_sds": sds}
 
         return self.run_stage("align_jumps", ih, ["jump_alignlets.npz"], fn)
+
+    def _jump_ec_config(self):
+        """jump_ec's settings for every jump library: the strong table's K
+        and the trusted-prefix floor of the run's config."""
+        from allpathslg_tpu_torch.ec import jump as jec
+
+        return jec.JumpECConfig(K=self.cfg.K_ec,
+                                min_prefix_len=self.cfg.jump_min_prefix_len)
 
     def _strong_table(self):
         """The strong K_ec table of find_errors, hashed on the device."""
@@ -1008,7 +1027,8 @@ class Pipeline:
         from allpathslg_tpu_torch.scaffold import longjump as slj
         from allpathslg_tpu_torch.scaffold import superb as ssb
 
-        ih = rd.hash_of("long_jump_scaffolds",
+        jcfg = self._jump_ec_config()
+        ih = rd.hash_of("long_jump_scaffolds", str(jcfg),
                         self._art_hash("long_jump_reads_orig"),
                         self._art_hash("unibases"),
                         str(rd.metrics("make_scaffolds")))
@@ -1020,7 +1040,7 @@ class Pipeline:
             a = rd.load_arrays("long_jump_reads_orig", mmap=True)
             c, q, l, pair_ok, m = jec.error_correct_jumps(
                 a["codes"], a["quals"], a["lengths"], a["pairs"],
-                self._strong_table(), device=self.device)
+                self._strong_table(), jcfg, device=self.device)
             rd.save_arrays("long_jump_reads_ec", codes=c, quals=q,
                            lengths=l, pairs=a["pairs"], pair_ok=pair_ok)
             am = self._align_reads_to_contigs("long_jump_reads_ec",
