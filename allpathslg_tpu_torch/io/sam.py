@@ -7,10 +7,17 @@ the reverse strand are flipped back to their sequenced orientation (SAM
 stores SEQ reference-oriented); secondary and supplementary records are
 skipped; pairing recovers (first, second) mates by QNAME. BAM arrives
 through an external `samtools view` pipe, as in the reference.
+
+Plain files go through `native/sam_reader.cpp` (built by native/build.py;
+a failed build raises), which gives the Python parser's records, pairs and
+names. Gzip files, and plain files the reader declines (a carriage
+return, a byte >= 0x80, a FLAG that is not plain digits, a QUAL whose
+length is not SEQ's, no kept record), go through the Python parser.
 """
 
 from __future__ import annotations
 
+import ctypes
 import gzip
 import os
 import subprocess
@@ -22,6 +29,7 @@ import numpy as np
 from allpathslg_tpu_torch import trace
 from allpathslg_tpu_torch.dtypes.reads import (codes_from_string,
                                                string_from_codes)
+from allpathslg_tpu_torch.native import build as nbuild
 
 FLAG_PAIRED = 0x1
 FLAG_UNMAPPED = 0x4
@@ -49,13 +57,51 @@ def read_sam(path: str, keep_duplicates: bool = True):
     line as the reference does.
 
     Returns (codes [N, Lmax] uint8, quals [N, Lmax] uint8, lengths [N],
-    pairs [P, 2] int32, names list[str]).
+    pairs [P, 2] int32, names list[str]). The span's counter reads_native
+    or reads_python says which parser gave them.
     """
-    with trace.span("ingest.sam", file=str(path)) as sp:
-        out = _parse(path, keep_duplicates)
+    path = str(path)
+    with trace.span("ingest.sam", file=path) as sp:
+        out = None if path.endswith(".gz") else _read_native(
+            path, keep_duplicates)
+        via = "reads_native"
+        if out is None:
+            out, via = _parse(path, keep_duplicates), "reads_python"
         sp.add("reads", len(out[2]))
+        sp.add(via, len(out[2]))
         sp.add("bytes", os.path.getsize(path))
         return out
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _read_native(path: str, keep_duplicates: bool):
+    """read_sam's 5-tuple from the native reader, or None where it
+    declines the file."""
+    lib = nbuild.sam_lib()
+    n, lmax, nb = ctypes.c_long(), ctypes.c_long(), ctypes.c_long()
+    fpath, keep = os.fsencode(path), int(bool(keep_duplicates))
+    if lib.sam_scan(fpath, keep, ctypes.byref(n), ctypes.byref(lmax),
+                    ctypes.byref(nb)) != 0:
+        return None
+    N, L = n.value, lmax.value
+    codes = np.empty((N, L), np.uint8)
+    quals = np.empty((N, L), np.uint8)
+    lengths = np.empty(N, np.int32)
+    pairs = np.empty((N // 2, 2), np.int32)
+    names = np.empty(nb.value, np.uint8)
+    n_pairs = ctypes.c_long()
+    rc = lib.sam_load(fpath, keep, _ptr(codes, ctypes.c_ubyte),
+                      _ptr(quals, ctypes.c_ubyte), _ptr(lengths, ctypes.c_int),
+                      _ptr(pairs, ctypes.c_int), len(pairs),
+                      ctypes.byref(n_pairs), _ptr(names, ctypes.c_char),
+                      N, L, nb.value)
+    if rc != 0:
+        return None
+    return (codes, quals, lengths, pairs[:n_pairs.value].copy(),
+            names.tobytes().decode("ascii").split("\n"))
 
 
 def _parse(path: str, keep_duplicates: bool):

@@ -1,8 +1,9 @@
 """Build and load the port's native host libraries (C++ through ctypes).
 
-`fastq_reader.cpp` and `radix_sort.cpp` (copies of the reference's) are
-each compiled with `g++ -O3 -march=native -shared -fPIC` at first use into
-`build/native/` (gitignored), under a name that carries a hash of the source and the
+`fastq_reader.cpp` and `radix_sort.cpp` (copies of the reference's) and
+`sam_reader.cpp` (the port's own) are each compiled with `g++ -O3
+-march=native -shared -fPIC` at first use into `build/native/`
+(gitignored), under a name that carries a hash of the source and the
 flags, as ops/cuda/nvcc.py names the kernels: an edit rebuilds, and
 nothing is ever written into the package directory. The compile goes to a
 temporary name and is renamed into place. A failed build raises with the
@@ -66,6 +67,24 @@ def fastq_lib() -> ctypes.CDLL:
                                ctypes.POINTER(ctypes.c_ubyte),
                                ctypes.POINTER(ctypes.c_int),
                                ctypes.c_long, ctypes.c_long]
+    return lib
+
+
+def sam_lib() -> ctypes.CDLL:
+    """The SAM reader (io/sam.read_sam's plain files)."""
+    lib = load("sam_reader")
+    long_p = ctypes.POINTER(ctypes.c_long)
+    lib.sam_scan.restype = ctypes.c_int
+    lib.sam_scan.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                             long_p, long_p, long_p]
+    lib.sam_load.restype = ctypes.c_int
+    lib.sam_load.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_ubyte),
+                             ctypes.POINTER(ctypes.c_ubyte),
+                             ctypes.POINTER(ctypes.c_int),
+                             ctypes.POINTER(ctypes.c_int), ctypes.c_long,
+                             long_p, ctypes.POINTER(ctypes.c_char),
+                             ctypes.c_long, ctypes.c_long, ctypes.c_long]
     return lib
 
 

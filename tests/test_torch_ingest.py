@@ -3,7 +3,9 @@
 FASTQ (plain files through each package's native reader, `.gz` through
 each package's Python parser), SAM (the fixtures of the reference's
 tests/test_prepare_sam.py: paired and RC flags, secondary and
-supplementary records, duplicates, `*` qualities) and library sheets
+supplementary records, duplicates, `*` qualities; the port's native SAM
+reader on edge cases and on the files it declines, each case naming the
+parser that ran) and library sheets
 (pipeline/prepare.prepare_inputs: mates by `?` and by comma, an
 interleaved FASTQ, a SAM jump library, two jump libraries, a long-jump
 library and a PacBio FASTQ). Every array, the `ploidy` file and the
@@ -16,7 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from allpathslg_tpu.eval import sim  # noqa: E402
@@ -24,12 +26,14 @@ from allpathslg_tpu.io import native_fastq as r_fastq  # noqa: E402
 from allpathslg_tpu.io import sam as r_sam  # noqa: E402
 from allpathslg_tpu.pipeline import prepare as r_prepare  # noqa: E402
 from allpathslg_tpu.pipeline.rundir import RunDir as RRunDir  # noqa: E402
+from allpathslg_tpu_torch import trace  # noqa: E402
 from allpathslg_tpu_torch.io import fasta as t_fasta  # noqa: E402
 from allpathslg_tpu_torch.io import native_fastq as t_fastq  # noqa: E402
 from allpathslg_tpu_torch.io import sam as t_sam  # noqa: E402
 from allpathslg_tpu_torch.native import build as t_build  # noqa: E402
 from allpathslg_tpu_torch.pipeline import prepare as t_prepare  # noqa: E402
 from allpathslg_tpu_torch.pipeline.rundir import RunDir as TRunDir  # noqa: E402
+from portbench import readfiles  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_DIR = ROOT / "allpathslg_tpu_torch"
@@ -88,13 +92,17 @@ def test_fastq_simulated_reads_round_trip(tmp_path):
     assert (got[0] == codes).all() and (got[1] == quals).all()
 
 
-def test_native_reader_builds_outside_the_package():
+@pytest.mark.parametrize("name, loader, prefix", [
+    ("fastq_reader", "fastq_lib", "fastq"),
+    ("sam_reader", "sam_lib", "sam"),
+])
+def test_native_reader_builds_outside_the_package(name, loader, prefix):
     before = {p for p in PORT_DIR.rglob("*") if "__pycache__" not in p.parts}
-    lib = t_build.fastq_lib()
-    assert lib.fastq_scan and lib.fastq_load
+    lib = getattr(t_build, loader)()
+    assert getattr(lib, f"{prefix}_scan") and getattr(lib, f"{prefix}_load")
     so = Path(lib._name)
     assert so.parent == t_build.BUILD_DIR == ROOT / "build" / "native"
-    assert so.name.startswith("libfastq_reader_") and so.exists()
+    assert so.name.startswith(f"lib{name}_") and so.exists()
     after = {p for p in PORT_DIR.rglob("*") if "__pycache__" not in p.parts}
     assert after == before
     assert not list(PORT_DIR.rglob("*.so"))
@@ -157,13 +165,144 @@ def test_sam_flags_equal_the_reference(tmp_path, gz, keep_duplicates):
     if gz:
         Path(str(p) + ".gz").write_bytes(gzip.compress(p.read_bytes()))
         p = Path(str(p) + ".gz")
-    got = t_sam.read_sam(str(p), keep_duplicates=keep_duplicates)
+    got, counters = _read_sam_traced(p, keep_duplicates)
     want = r_sam.read_sam(str(p), keep_duplicates=keep_duplicates)
     _same_arrays(got[:4], want[:4])
     assert got[4] == want[4]
+    # plain files go through the native reader, gzip through Python
+    via = "reads_python" if gz else "reads_native"
+    assert counters["reads"] == counters[via] == len(got[2])
     # the RC mate comes back in its sequenced orientation
     assert t_sam.string_from_codes(got[0][1, :10]) == "TTGGCCAATT"
     assert got[3][:1].tolist() == [[0, 1]]
+
+
+def _read_sam_traced(path, keep_duplicates=True):
+    """(read_sam's result, or the exception it raised, and the counters
+    of its ingest.sam span), under a CPU profiler session."""
+    trace.clear()
+    got = None
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = t_sam.read_sam(str(path), keep_duplicates=keep_duplicates)
+    except Exception as e:  # noqa: BLE001 - compared with the reference's
+        got = e
+    (sp,) = [s for s in trace.spans() if s.name == "ingest.sam"]
+    trace.clear()
+    return got, sp.counters
+
+
+def _sam_lines(rows) -> bytes:
+    return b"".join(b"%s\t%s\tref\t5\t60\t*\t*\t0\t0\t%s\t%s\n"
+                    % tuple(x.encode() if isinstance(x, str) else x
+                            for x in r) for r in rows)
+
+
+def _edge_sam() -> bytes:
+    """QNAMEs on three records, paired records with neither 0x40 nor
+    0x80 and with both, an orphan mate, lower-case and IUPAC bases, `*`
+    QUAL on a 0x10 record, an empty SEQ, FLAG with leading zeros, tags,
+    short and empty lines, and no trailing newline."""
+    rows = [
+        ("t", "65", "ACGTTGCA", "IIIIHHHH"),
+        ("t", "129", "GGGTTT", "ABCDEF"),
+        ("t", "65", "CCCAAA", "!!##$$"),          # third record of t
+        ("w", "65", "AAAA", "IIII"),
+        ("w", "65", "CCCC", "IIII"),              # overwrites the first w
+        ("w", "129", "GGGG", "IIII"),             # pairs with the second
+        ("n", "1", "acgtRYKMSWBDHVN", "I" * 15),  # neither 0x40 nor 0x80
+        ("o", "65", "TTTTAAAA", "55555555"),      # orphan
+        ("n", "65", "AACC", "IIII"),
+        ("b", "1", "ACGT", "IIII"),
+        ("b", "193", "TTGG", "JJJJ"),             # both 0x40 and 0x80
+        ("r", "0145", "ACGTNNacgt", "*"),         # 0x91 (RC), `*` QUAL
+        ("e", "4", "", ""),                       # empty SEQ is kept
+        ("x", "1105", "CCCC", "IIII"),            # 0x451: a duplicate
+        ("r", "97", "GATTACA", "0123456"),
+        ("d", "1089", "GGCC", "FFFF"),            # 0x441 duplicate
+    ]
+    body = b"@HD\tVN:1.6\n@SQ\tSN:ref\tLN:100\n" + _sam_lines(rows)
+    body += b"\n" + b"\t".join([b"ten"] * 10) + b"\n"
+    last = _sam_lines([("q", "17", "ACGTA", "IIIII")])[:-1]
+    body += last + b"\tNM:i:0\tXS:Z:+"
+    return body
+
+
+SAM_CASES = {
+    # name: (the file's bytes, the parser expected)
+    "edge": (_edge_sam, "native"),
+    "header_only": (lambda: b"@HD\tVN:1.6\n@SQ\tSN:ref\tLN:100\n",
+                    "python"),
+    "crlf": (lambda: _edge_sam().replace(b"\n", b"\r\n"), "python"),
+    "lone_cr": (lambda: _edge_sam().replace(b"\n", b"\r", 3), "python"),
+    "utf8_qname": (lambda: _edge_sam().replace(
+        b"\no\t", "\n\u00f6\t".encode()), "python"),
+    "plus_flag": (lambda: _edge_sam().replace(b"\nn\t65\t", b"\nn\t+65\t"),
+                  "python"),
+    "short_qual": (lambda: _edge_sam().replace(b"\t55555555\n", b"\t555\n"),
+                   "python"),
+    "long_qual": (lambda: _edge_sam().replace(
+        b"\tIIII\n", b"\t" + b"I" * 40 + b"\n", 1), "python"),
+}
+
+
+@pytest.mark.parametrize("keep_duplicates", [True, False])
+@pytest.mark.parametrize("case", list(SAM_CASES))
+def test_sam_native_reader_cases_equal_the_reference(tmp_path, case,
+                                                     keep_duplicates):
+    """Each case == the reference's read_sam (or raises what it raises),
+    and the span names the parser that ran: the native reader, or the
+    Python parser where the native one declines the file."""
+    make, via = SAM_CASES[case]
+    data = make()
+    p = tmp_path / f"{case}.sam"
+    p.write_bytes(data)
+    got, counters = _read_sam_traced(p, keep_duplicates)
+    try:
+        want = r_sam.read_sam(str(p), keep_duplicates=keep_duplicates)
+    except Exception as e:  # noqa: BLE001
+        assert type(got) is type(e) and str(got) == str(e)
+        assert case == "long_qual"   # its QUAL overruns every row
+        return
+    assert not isinstance(got, Exception), got
+    _same_arrays(got[:4], want[:4])
+    assert got[4] == want[4]
+    n = len(got[2])
+    assert counters == {"reads": n, f"reads_{via}": n,
+                        "bytes": len(data)}
+    if case == "edge":
+        names = got[4]
+        assert names.count("t") == 3 and "e" in names
+        w = [i for i, x in enumerate(names) if x == "w"]
+        assert [w[1], w[2]] in got[3].tolist()
+        assert got[2][names.index("e")] == 0
+        i = names.index("r")   # the RC record: codes reverse-complemented
+        assert t_sam.string_from_codes(got[0][i, :10]) == "ACGTNNACGT"
+        assert (got[1][i, :10] == 30).all()
+        assert ("x" in names) == keep_duplicates
+
+
+@pytest.mark.parametrize("L", [37, 101])
+def test_sam_native_round_trip_of_benchmark_pairs(tmp_path, L):
+    """Mates written as the benchmark's traffic writes them (0x41 / 0x81,
+    every odd pair's second mate reverse-complemented with 0x10) read back
+    through the native reader as written, == the reference's parse."""
+    n_pairs = 3000
+    rng = np.random.default_rng(L)
+    codes = rng.integers(0, 5, (2 * n_pairs, L)).astype(np.uint8)
+    quals = rng.integers(2, 41, (2 * n_pairs, L)).astype(np.uint8)
+    pairs = np.arange(2 * n_pairs, dtype=np.int32).reshape(-1, 2)
+    p = tmp_path / "jump.sam"
+    readfiles.write_pairs_sam(p, codes, quals, pairs, b"j")
+    got, counters = _read_sam_traced(p)
+    assert counters["reads_native"] == counters["reads"] == 2 * n_pairs
+    assert "reads_python" not in counters
+    assert (got[0] == codes).all() and (got[1] == quals).all()
+    assert (got[2] == L).all() and (got[3] == pairs).all()
+    want = r_sam.read_sam(str(p))
+    _same_arrays(got[:4], want[:4])
+    assert got[4] == want[4]
 
 
 def test_bam_through_samtools(tmp_path):
