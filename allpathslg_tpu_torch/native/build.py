@@ -1,12 +1,13 @@
-"""Build and load the port's native host libraries (C++ through ctypes).
+"""Build and load the port's compiled libraries: the native host ones here
+(C++ through ctypes) and, through ops/cuda/nvcc.py, the CUDA kernels.
 
 `fastq_reader.cpp` and `radix_sort.cpp` (copies of the reference's) and
 `sam_reader.cpp` (the port's own) are each compiled with `g++ -O3
 -march=native -shared -fPIC` at first use into `build/native/`
 (gitignored), under a name that carries a hash of the source and the
-flags, as ops/cuda/nvcc.py names the kernels: an edit rebuilds, and
-nothing is ever written into the package directory. The compile goes to a
-temporary name and is renamed into place. A failed build raises with the
+flags: an edit rebuilds, and nothing is ever written into the package
+directory. The compile goes to a temporary name that carries the process
+and the thread, and is renamed into place. A failed build raises with the
 compiler's stderr; there is no fallback (the reference falls back to numpy
 when its library is missing; the port does not).
 """
@@ -18,6 +19,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -25,38 +27,62 @@ import numpy as np
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parents[1] / "build" / "native"
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
-_LOCK = threading.Lock()
-_LIBS = {}
 
 
-def build(name: str) -> Path:
-    """Compile `native/<name>.cpp` if its library is missing; its path."""
-    src_path = _DIR / f"{name}.cpp"
+def compile_library(compiler: str, src_path: Path, flags: list,
+                    out_dir: Path) -> tuple:
+    """Compile `src_path` with `compiler` and `flags` into `out_dir` if its
+    library is missing: (path, seconds spent; 0.0 when already built)."""
     src = src_path.read_bytes()
-    tag = hashlib.sha1(src + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}_{tag}.so"
+    tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
+    out = out_dir / f"lib{src_path.stem}_{tag}.so"
     if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return out, 0.0
+    out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run(["g++", *CXX_FLAGS, str(src_path), "-o", str(tmp)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {src_path}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([compiler, *flags, "-o", str(tmp),
+                               str(src_path)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{Path(compiler).name} failed for "
+                               f"{src_path}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return out, time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    with _LOCK:
-        if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(str(build(name)))
-        return _LIBS[name]
+class Loader:
+    """`library()`: on the first call, under a lock, the library of
+    `build(name)` loaded and passed through `bind` (which declares its C
+    functions' types and returns it); after that, `lib`, without the lock.
+    A tuning script may set `lib` to a bound variant build."""
+
+    def __init__(self, build, name: str, bind):
+        self._build, self._name, self._bind = build, name, bind
+        self._lock = threading.Lock()
+        self.lib = None
+
+    def __call__(self):
+        lib = self.lib
+        if lib is not None:
+            return lib
+        with self._lock:
+            if self.lib is None:
+                path, _ = self._build(self._name)
+                self.lib = self._bind(ctypes.CDLL(str(path)))
+            return self.lib
 
 
-def fastq_lib() -> ctypes.CDLL:
+def build(name: str) -> tuple:
+    """Compile `native/<name>.cpp` if its library is missing: (path, s)."""
+    return compile_library("g++", _DIR / f"{name}.cpp", CXX_FLAGS,
+                           BUILD_DIR)
+
+
+def _bind_fastq(lib):
     """The FASTQ reader, with the reference's argtypes."""
-    lib = load("fastq_reader")
     lib.fastq_scan.restype = ctypes.c_int
     lib.fastq_scan.argtypes = [ctypes.c_char_p,
                                ctypes.POINTER(ctypes.c_long),
@@ -70,9 +96,8 @@ def fastq_lib() -> ctypes.CDLL:
     return lib
 
 
-def sam_lib() -> ctypes.CDLL:
+def _bind_sam(lib):
     """The SAM reader (io/sam.read_sam's plain files)."""
-    lib = load("sam_reader")
     long_p = ctypes.POINTER(ctypes.c_long)
     lib.sam_scan.restype = ctypes.c_int
     lib.sam_scan.argtypes = [ctypes.c_char_p, ctypes.c_int,
@@ -88,14 +113,18 @@ def sam_lib() -> ctypes.CDLL:
     return lib
 
 
-def radix_lib() -> ctypes.CDLL:
+def _bind_radix(lib):
     """The host LSD radix sort, with the reference's argtypes."""
-    lib = load("radix_sort")
     lib.radix_sort_u64.restype = ctypes.c_int
     lib.radix_sort_u64.argtypes = [ctypes.POINTER(ctypes.c_uint64),
                                    ctypes.POINTER(ctypes.c_int64),
                                    ctypes.c_int64]
     return lib
+
+
+fastq_lib = Loader(build, "fastq_reader", _bind_fastq)
+sam_lib = Loader(build, "sam_reader", _bind_sam)
+radix_lib = Loader(build, "radix_sort", _bind_radix)
 
 
 # Below this many keys the reference sorts with numpy's stable argsort

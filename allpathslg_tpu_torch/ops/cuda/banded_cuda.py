@@ -34,16 +34,6 @@ MAX_BAND = 15          # K = 2 * band + 1 slots must fit one uint32
 _SOURCE = "banded_bp.cu"
 
 _KERNEL = "banded_bp"  # name in allpathslg_tpu_torch/trace.py
-_lib = None
-
-
-def launch_count() -> int:
-    """Kernel launches made through `banded_align_bp` since the last reset."""
-    return trace.count(_KERNEL)
-
-
-def reset_launch_count() -> None:
-    trace.reset(_KERNEL)
 
 
 def banded_align_bp_plain(q, q_len, t, t_len, offset, band: int = 15):
@@ -92,17 +82,9 @@ def _banded_align_bp_cuda(q, q_len, t, t_len, offset, band: int):
             q.data_ptr(), t.data_ptr(), scal[0].data_ptr(),
             scal[1].data_ptr(), scal[2].data_ptr(), cost.data_ptr(),
             t_end.data_ptr(), B, Lq, Lt, band, stream)
-    if err != 0:
-        msg = lib.banded_bp_error_string(err).decode()
-        raise RuntimeError(f"banded_bp_launch failed: CUDA error {err} "
-                           f"({msg})")
+    nvcc.check(err, "banded_bp_launch", lib.banded_bp_error_string)
     trace.record(_KERNEL)
     return cost, t_end
-
-
-def build() -> tuple:
-    """Compile the kernel if its library is missing: (path, seconds spent)."""
-    return nvcc.build(_SOURCE)
 
 
 def bind(lib):
@@ -118,10 +100,4 @@ def bind(lib):
     return lib
 
 
-def library():
-    """The loaded kernel library (built on first use)."""
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        _lib = bind(ctypes.CDLL(str(path)))
-    return _lib
+library = nvcc.loader(_SOURCE, bind)

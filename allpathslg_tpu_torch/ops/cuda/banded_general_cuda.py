@@ -34,17 +34,6 @@ MAX_LQ = 1 << 20
 _SOURCE = "banded_general.cu"
 
 _KERNEL = "banded_general"  # name in allpathslg_tpu_torch/trace.py
-_lib = None
-
-
-def launch_count() -> int:
-    """Kernel launches made through `banded_align_general` since the last
-    reset."""
-    return trace.count(_KERNEL)
-
-
-def reset_launch_count() -> None:
-    trace.reset(_KERNEL)
 
 
 def banded_general_plain(q, q_len, t, t_len, offset, band: int = 16,
@@ -107,17 +96,9 @@ def _banded_general_cuda(q, q_len, t, t_len, offset, band: int,
             scal[1].data_ptr(), scal[2].data_ptr(), cost.data_ptr(),
             t_end.data_ptr(), B, Lq, Lt, band, int(sub_cost), int(gap_cost),
             stream)
-    if err != 0:
-        msg = lib.banded_general_error_string(err).decode()
-        raise RuntimeError(f"banded_general_launch failed: CUDA error {err} "
-                           f"({msg})")
+    nvcc.check(err, "banded_general_launch", lib.banded_general_error_string)
     trace.record(_KERNEL)
     return cost, t_end
-
-
-def build() -> tuple:
-    """Compile the kernel if its library is missing: (path, seconds spent)."""
-    return nvcc.build(_SOURCE)
 
 
 def bind(lib):
@@ -138,10 +119,4 @@ def bind(lib):
     return lib
 
 
-def library():
-    """The loaded kernel library (built on first use)."""
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        _lib = bind(ctypes.CDLL(str(path)))
-    return _lib
+library = nvcc.loader(_SOURCE, bind)

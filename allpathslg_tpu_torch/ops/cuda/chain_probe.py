@@ -16,31 +16,20 @@ import torch
 from allpathslg_tpu_torch.ops.cuda import nvcc
 
 _SOURCE = "chain_probe.cu"
-_lib = None
 
 
-def build() -> tuple:
-    """Compile the probes if their library is missing: (path, seconds)."""
-    return nvcc.build(_SOURCE)
+def bind(lib):
+    """Declare the C functions' argument and result types on a loaded
+    library of csrc/chain_probe.cu; returns it."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.chain_probe_dpx.argtypes = [ci, ci, ci, vp, vp, vp]
+    lib.chain_probe_dpx.restype = ci
+    lib.chain_probe_empty.argtypes = [vp]
+    lib.chain_probe_empty.restype = ci
+    return lib
 
 
-def library():
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.chain_probe_dpx.argtypes = [ci, ci, ci, vp, vp, vp]
-        lib.chain_probe_dpx.restype = ci
-        lib.chain_probe_empty.argtypes = [vp]
-        lib.chain_probe_empty.restype = ci
-        _lib = lib
-    return _lib
-
-
-def _check(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"chain_probe: {what} failed with CUDA error {err}")
+library = nvcc.loader(_SOURCE, bind)
 
 
 class DpxChain:
@@ -56,10 +45,10 @@ class DpxChain:
 
     def __call__(self):
         stream = torch.cuda.current_stream().cuda_stream
-        _check(library().chain_probe_dpx(self.n, 1, 1 << 30,
-                                         self.out.data_ptr(),
-                                         self.cycles.data_ptr(), stream),
-               "dpx chain launch")
+        nvcc.check(library().chain_probe_dpx(self.n, 1, 1 << 30,
+                                             self.out.data_ptr(),
+                                             self.cycles.data_ptr(), stream),
+                   "chain_probe: dpx chain launch")
 
     def cycles_per_step(self) -> float:
         """clock64 cycles a dependent DPX instruction, from the last call
@@ -72,5 +61,6 @@ class DpxChain:
 
 
 def empty():
-    _check(library().chain_probe_empty(torch.cuda.current_stream()
-                                       .cuda_stream), "empty launch")
+    nvcc.check(library().chain_probe_empty(torch.cuda.current_stream()
+                                           .cuda_stream),
+               "chain_probe: empty launch")

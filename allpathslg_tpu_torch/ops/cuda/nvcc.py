@@ -1,12 +1,12 @@
 """Build a hand-written CUDA source of the port into a plain-C shared
 library with nvcc, for Hopper (sm_90a), at first use.
 
-Each kernel module (sort_cuda, banded_cuda) names its source under
-`allpathslg_tpu_torch/csrc/` and binds the library with ctypes. The
-library lands in `build/kernels/` (gitignored) under a name that carries
-a hash of the source and the flags, so an edit rebuilds; the compile goes
-to a temporary name and is renamed into place, so a concurrent or
-interrupted build never leaves a bad file. A failed build raises.
+Each kernel module names its source under `allpathslg_tpu_torch/csrc/`,
+declares its C functions' types in a `bind`, and loads the library through
+`library = loader(_SOURCE, bind)`. The library lands in `build/kernels/`
+(gitignored) by native/build.compile_library, the compile routine the host
+libraries share, under a name that carries a hash of the source and the
+flags. `check` raises on a nonzero return of a kernel library's function.
 `build_variant` builds edited copies of a source for the tuning scripts
 under scripts/.
 """
@@ -18,8 +18,9 @@ import os
 import re
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from allpathslg_tpu_torch.native.build import Loader, compile_library
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -41,21 +42,21 @@ def _nvcc() -> str:
 def build(source: str) -> tuple:
     """Compile `csrc/<source>` if its library is missing: (path, seconds
     spent; 0.0 when the library was already built)."""
-    src_path = CSRC / source
-    src = src_path.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{src_path.stem}_{tag}.so"
-    if out.exists():
-        return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(src_path)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src_path}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0
+    return compile_library(_nvcc(), CSRC / source, NVCC_FLAGS, BUILD_DIR)
+
+
+def loader(source: str, bind) -> Loader:
+    """The `library()` of `csrc/<source>`: built, loaded and bound once, on
+    first use."""
+    return Loader(build, source, bind)
+
+
+def check(err: int, what: str, error_string=None) -> None:
+    """Raise if `what` returned the CUDA error `err` (nonzero), with the
+    message of the library's `<name>_error_string` when it has one."""
+    if err != 0:
+        msg = f" ({error_string(err).decode()})" if error_string else ""
+        raise RuntimeError(f"{what} failed: CUDA error {err}{msg}")
 
 
 def build_variant(source: str, variant: str = "", ptxas: bool = False,

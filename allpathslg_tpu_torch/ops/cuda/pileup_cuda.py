@@ -33,16 +33,6 @@ from allpathslg_tpu_torch.ops.cuda import nvcc
 _SOURCE = "pileup.cu"
 _KERNEL = "pileup"  # name in allpathslg_tpu_torch/trace.py
 _CHUNK = 262144     # reads a step of the plain version (bounds its memory)
-_lib = None
-
-
-def launch_count() -> int:
-    """Kernel launches made through `pileup` since the last reset."""
-    return trace.count(_KERNEL)
-
-
-def reset_launch_count() -> None:
-    trace.reset(_KERNEL)
 
 
 def pileup_plain(offsets, codes, lengths, contig, anchor, rc, starts,
@@ -114,16 +104,9 @@ def _pileup_cuda(offsets, codes, lengths, contig, anchor, rc, starts,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pileup_launch(*(x.data_ptr() for x in ins), N, L, s0, s1,
                                 votes.data_ptr(), stream)
-    if err != 0:
-        msg = lib.pileup_error_string(err).decode()
-        raise RuntimeError(f"pileup_launch failed: CUDA error {err} ({msg})")
+    nvcc.check(err, "pileup_launch", lib.pileup_error_string)
     trace.record(_KERNEL)
     return votes
-
-
-def build() -> tuple:
-    """Compile the kernel if its library is missing: (path, seconds spent)."""
-    return nvcc.build(_SOURCE)
 
 
 def bind(lib):
@@ -139,10 +122,4 @@ def bind(lib):
     return lib
 
 
-def library():
-    """The loaded kernel library (built on first use)."""
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        _lib = bind(ctypes.CDLL(str(path)))
-    return _lib
+library = nvcc.loader(_SOURCE, bind)

@@ -48,7 +48,6 @@ MAX_KEYS = 1 << 31          # rows * row_len; the histogram counts are 32-bit
 MAX_ROW_LEN = 1 << 30       # the look-back counts a row's keys in 30 bits
 
 _KERNEL = "row_sort"  # name in allpathslg_tpu_torch/trace.py
-_lib = None
 
 
 class Layout(NamedTuple):
@@ -155,12 +154,6 @@ def _check_idx(idx: torch.Tensor, keys: torch.Tensor):
     return idx.contiguous()
 
 
-def _raise_on(lib, err: int, what: str):
-    if err != 0:
-        msg = lib.row_sort_error_string(err).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
-
-
 def _at(buf: torch.Tensor, words: int) -> int:
     """The address of word `words` of an int32 buffer."""
     return buf.data_ptr() + 4 * words
@@ -172,10 +165,10 @@ def _start_histogram(lib, keys: torch.Tensor, key_bits: int, stream: int):
     rows, row_len = keys.shape
     lay = scratch_layout(rows, row_len, key_bits, lib.row_sort_tile_keys())
     work = torch.empty(lay.total, dtype=torch.int32, device=keys.device)
-    _raise_on(lib, lib.row_sort_histogram(
+    nvcc.check(lib.row_sort_histogram(
         keys.data_ptr(), rows, row_len, key_bits, work.data_ptr(), lay.bases,
         _at(work, lay.row_hist), _at(work, lay.bases), stream),
-        "row_sort_histogram")
+        "row_sort_histogram", lib.row_sort_error_string)
     return work, lay
 
 
@@ -183,8 +176,8 @@ def _read_histogram(lib, key_bits: int, stream: int):
     """Waits for the union (the sort's one synchronise): (union [key_bits
     // 8, 256], count of all-ones keys)."""
     host = np.empty(HIST_WORDS, np.int32)
-    _raise_on(lib, lib.row_sort_read_histogram(host.ctypes.data, stream),
-              "row_sort_read_histogram")
+    nvcc.check(lib.row_sort_read_histogram(host.ctypes.data, stream),
+               "row_sort_read_histogram", lib.row_sort_error_string)
     union = host[:-1].reshape(-1, RADIX)[: key_bits // sort_cuda.RADIX_BITS]
     return union, int(host[-1])
 
@@ -240,14 +233,9 @@ def _row_sort_cuda(keys: torch.Tensor, key_bits: int,
             idx_b.data_ptr(), _at(work, lay.bases), _at(work, lay.status),
             lay.status_stride, rows, row_len, key_bits,
             (ctypes.c_int * len(shifts))(*shifts), len(shifts), stream)
-    _raise_on(lib, err, "row_sort_passes")
+    nvcc.check(err, "row_sort_passes", lib.row_sort_error_string)
     # pass j writes buffer a when j is even, b when it is odd
     return (keys_a, idx_a) if len(shifts) % 2 else (keys_b, idx_b)
-
-
-def build() -> tuple:
-    """Compile the kernel if its library is missing: (path, seconds spent)."""
-    return nvcc.build(_SOURCE)
 
 
 def bind(lib):
@@ -269,10 +257,4 @@ def bind(lib):
     return lib
 
 
-def library():
-    """The loaded kernel library (built on first use)."""
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        _lib = bind(ctypes.CDLL(str(path)))
-    return _lib
+library = nvcc.loader(_SOURCE, bind)

@@ -38,16 +38,6 @@ RADIX_BITS = 8
 MAX_KEYS = 1 << 30          # the kernel's look-back counts have 30 bits
 
 _KERNEL = "radix_sort"  # name in allpathslg_tpu_torch/trace.py
-_lib = None
-
-
-def launch_count() -> int:
-    """Kernel launches made through `radix_sort` since the last reset."""
-    return trace.count(_KERNEL)
-
-
-def reset_launch_count() -> None:
-    trace.reset(_KERNEL)
 
 
 def radix_sort_plain(keys: torch.Tensor, key_bits: int):
@@ -116,12 +106,6 @@ def _check(keys: torch.Tensor, key_bits: int):
     return keys.contiguous()
 
 
-def _raise_on(lib, err: int, what: str):
-    if err != 0:
-        msg = lib.radix_sort_error_string(err).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
-
-
 def digit_histogram(keys: torch.Tensor, key_bits: int):
     """digit_histogram_plain's result, from the histogram kernel for a
     CUDA tensor of n >= 1 keys."""
@@ -141,9 +125,9 @@ def _start_histogram(lib, keys: torch.Tensor, key_bits: int, stream: int):
     scratch), zeroed, with the histogram kernel started into its head."""
     work = torch.empty(lib.radix_sort_work_words(keys.numel(), key_bits),
                        dtype=torch.int32, device=keys.device)
-    _raise_on(lib, lib.radix_sort_histogram(
+    nvcc.check(lib.radix_sort_histogram(
         keys.data_ptr(), keys.numel(), key_bits, work.data_ptr(), stream),
-        "radix_sort_histogram")
+        "radix_sort_histogram", lib.radix_sort_error_string)
     return work
 
 
@@ -151,8 +135,8 @@ def _read_histogram(lib, key_bits: int, stream: int):
     """Waits for the histogram kernel (the sort's one synchronise):
     (hist rows [key_bits // 8, 256], count of all-ones keys)."""
     host = np.empty(lib.radix_sort_hist_words(), np.int32)
-    _raise_on(lib, lib.radix_sort_read_histogram(host.ctypes.data, stream),
-              "radix_sort_read_histogram")
+    nvcc.check(lib.radix_sort_read_histogram(host.ctypes.data, stream),
+               "radix_sort_read_histogram", lib.radix_sort_error_string)
     rows = host[:-1].reshape(-1, 1 << RADIX_BITS)[: key_bits // RADIX_BITS]
     return rows, int(host[-1])
 
@@ -182,14 +166,9 @@ def _radix_sort_cuda(keys: torch.Tensor, key_bits: int):
             keys_b.data_ptr(), idx_b.data_ptr(), work.data_ptr(), n,
             key_bits, (ctypes.c_int * len(shifts))(*shifts), len(shifts),
             stream)
-    _raise_on(lib, err, "radix_sort_passes")
+    nvcc.check(err, "radix_sort_passes", lib.radix_sort_error_string)
     # pass j writes buffer a when j is even, b when it is odd
     return (keys_a, idx_a) if len(shifts) % 2 else (keys_b, idx_b)
-
-
-def build() -> tuple:
-    """Compile the kernel if its library is missing: (path, seconds spent)."""
-    return nvcc.build(_SOURCE)
 
 
 def bind(lib):
@@ -212,10 +191,4 @@ def bind(lib):
     return lib
 
 
-def library():
-    """The loaded kernel library (built on first use)."""
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        _lib = bind(ctypes.CDLL(str(path)))
-    return _lib
+library = nvcc.loader(_SOURCE, bind)

@@ -444,13 +444,14 @@ def phase_build():
 
     from allpathslg_tpu_torch.ops.cuda import (banded_cuda,
                                                banded_general_cuda,
-                                               chain_probe, pileup_cuda,
-                                               row_sort_cuda, sort_cuda)
+                                               chain_probe, nvcc,
+                                               pileup_cuda, row_sort_cuda,
+                                               sort_cuda)
 
     mods = (sort_cuda, row_sort_cuda, banded_cuda, banded_general_cuda,
             chain_probe, pileup_cuda)
     with ThreadPoolExecutor(len(mods)) as pool:
-        built = list(pool.map(lambda m: m.build(), mods))
+        built = list(pool.map(lambda m: nvcc.build(m._SOURCE), mods))
     for mod, (path, secs) in zip(mods, built):
         mod.library()
         say(f"[build] {path.name}: nvcc {secs:.2f} s "
@@ -1171,7 +1172,7 @@ def phase_slice(genome_size: int, seed: int):
     """The contig slice and align_frags through Pipeline(device="cuda")
     with profile_dir set: each stage under torch.profiler, its trace
     checked; returns each kernel's launches in the run."""
-    from allpathslg_tpu_torch.ops.cuda import banded_cuda, sort_cuda
+    from allpathslg_tpu_torch import trace
     from allpathslg_tpu_torch.pipeline.config import AssemblyConfig
     from allpathslg_tpu_torch.pipeline.rundir import RunDir
     from allpathslg_tpu_torch.pipeline.run import prepare_sim_inputs
@@ -1195,30 +1196,30 @@ def phase_slice(genome_size: int, seed: int):
             say(f"[slice] {msg.strip()}")
 
     pipe = Pipeline(rd, cfg, log, device="cuda")
-    kernels = {"sort": sort_cuda, "banded": banded_cuda}
-    for mod in kernels.values():
-        mod.reset_launch_count()
+    kernels = {"sort": "radix_sort", "banded": "banded_bp"}
+    for name in kernels.values():
+        trace.reset(name)
     metrics, launches = {}, {}
     for stage in SLICE_STAGES:
-        before = {k: m.launch_count() for k, m in kernels.items()}
+        before = {k: trace.count(n) for k, n in kernels.items()}
         t = time.perf_counter()
         metrics[stage] = getattr(pipe, stage)()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
-        launches[stage] = {k: m.launch_count() - before[k]
-                           for k, m in kernels.items()}
+        launches[stage] = {k: trace.count(n) - before[k]
+                           for k, n in kernels.items()}
         shown = {k: v for k, v in metrics[stage].items() if k != "libraries"}
         say(f"[slice] {stage}: {dt:.1f} s, kernel launches "
             f"sort {launches[stage]['sort']}, banded "
             f"{launches[stage]['banded']}; {shown}")
-    total = {k: m.launch_count() for k, m in kernels.items()}
+    total = {k: trace.count(n) for k, n in kernels.items()}
     traces = {}
     for stage in SLICE_STAGES:
-        trace = trace_dir / stage / "trace.json"
-        check(trace.exists(), f"profile_dir: {stage} wrote no trace")
-        text = trace.read_text()
-        check('"traceEvents"' in text, f"{trace} is not a Chrome trace")
-        traces[stage] = (trace.stat().st_size,
+        path = trace_dir / stage / "trace.json"
+        check(path.exists(), f"profile_dir: {stage} wrote no trace")
+        text = path.read_text()
+        check('"traceEvents"' in text, f"{path} is not a Chrome trace")
+        traces[stage] = (path.stat().st_size,
                          {k: text.count(k) for k in SORT_KERNEL_NAMES})
     say(f"[slice] profile_dir: a torch.profiler trace a stage (MB; sort "
         f"kernel names in it): " + "; ".join(

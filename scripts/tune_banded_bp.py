@@ -126,7 +126,7 @@ def main(argv=None) -> int:
     libs = {v: build_variant(v, args.ptxas) for v in args.variants}
 
     def run_with(variant, fn):
-        banded_cuda._lib = libs[variant]
+        banded_cuda.library.lib = libs[variant]
         return fn()
 
     rng = np.random.default_rng(args.seed)

@@ -152,7 +152,7 @@ def main(argv=None) -> int:
     chain = smoke.chain_terms()
 
     def run_with(variant, fn):
-        bg._lib = libs[variant]
+        bg.library.lib = libs[variant]
         return fn()
 
     rng = np.random.default_rng(args.seed)

@@ -58,7 +58,7 @@ def main(argv=None) -> int:
     libs = {v: build_variant(v, args.ptxas) for v in args.variants}
 
     def run_with(variant, fn):
-        sort_cuda._lib = libs[variant]
+        sort_cuda.library.lib = libs[variant]
         return fn()
 
     # the flagship's keys, as phase 3 of chip_smoke.py sorts them

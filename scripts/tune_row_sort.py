@@ -97,7 +97,7 @@ def build_variant(variant: str, ptxas: bool):
     lib = row_sort_cuda.bind(lib)
 
     def sort(keys, key_bits):
-        row_sort_cuda._lib = lib
+        row_sort_cuda.library.lib = lib
         return row_sort_cuda.row_sort(keys, key_bits)
     return sort
 

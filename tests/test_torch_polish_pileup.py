@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from allpathslg_tpu_torch import trace  # noqa: E402
 from allpathslg_tpu_torch.asm import polish as tpolish  # noqa: E402
 from allpathslg_tpu_torch.eval import sim  # noqa: E402
 from allpathslg_tpu_torch.ops.cuda import pileup_cuda  # noqa: E402
@@ -79,11 +80,11 @@ def test_plain_matches_reference(name):
 
     *arrays, seg = _case(name)
     want = rpolish._pileup_votes(*arrays)
-    before = pileup_cuda.launch_count()
+    before = trace.count("pileup")
     got = tpolish._pileup_votes(*arrays, seg=seg, device="cpu")
     assert got.dtype == np.int32
     assert np.array_equal(got, want)
-    assert pileup_cuda.launch_count() == before
+    assert trace.count("pileup") == before
     if name == "no_reads":
         assert not got.any()
     else:
@@ -178,11 +179,11 @@ def test_kernel_matches_plain_version(cuda_device, name):
         *arrays, seg = _case(name)
     total = int(arrays[0][-1])
     want = tpolish._pileup_votes(*arrays, seg=seg, device="cpu")
-    pileup_cuda.reset_launch_count()
+    trace.reset("pileup")
     got = tpolish._pileup_votes(*arrays, seg=seg, device=cuda_device)
     torch.cuda.synchronize()
     assert np.array_equal(got, want)
-    assert pileup_cuda.launch_count() == -(-total // seg)
+    assert trace.count("pileup") == -(-total // seg)
 
 
 def _polish_inputs():
@@ -212,18 +213,18 @@ def test_polish_on_the_card_matches_the_cpu(cuda_device):
     counts on the card as on the CPU; each pass launches the kernel once
     (one segment)."""
     contig, offs, codes, lens, al = _polish_inputs()
-    pileup_cuda.reset_launch_count()
+    trace.reset("pileup")
     cb, cn = tpolish.polish_contigs(contig, offs, codes, lens, *al,
                                     device="cpu")
-    assert pileup_cuda.launch_count() == 0
+    assert trace.count("pileup") == 0
     gb, gn = tpolish.polish_contigs(contig, offs, codes, lens, *al,
                                     device=cuda_device)
-    assert pileup_cuda.launch_count() == 1
+    assert trace.count("pileup") == 1
     assert cn == gn > 0 and np.array_equal(cb, gb)
     want = tpolish.polish_indels(cb, offs, codes, lens, *al, device="cpu")
     got = tpolish.polish_indels(gb, offs, codes, lens, *al,
                                 device=cuda_device)
-    assert pileup_cuda.launch_count() == 2
+    assert trace.count("pileup") == 2
     assert np.array_equal(want[0], got[0])
     assert np.array_equal(want[1], got[1])
     assert want[2:] == got[2:] and got[2] >= 1

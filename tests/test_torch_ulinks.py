@@ -184,7 +184,7 @@ def test_native_sort_equals_stable_argsort():
 
 def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(t_build, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(t_build, "_LIBS", {})
+    monkeypatch.setattr(t_build.radix_lib, "lib", None)
     monkeypatch.setattr(t_build, "CXX_FLAGS",
                         t_build.CXX_FLAGS + ["-fno-such-flag-exists"])
     n = t_build.NATIVE_SORT_MIN
