@@ -54,10 +54,7 @@ class DeviceBatches:
             dev = db.device
             # one palette test for the whole read set, as the reference does;
             # each batch still packs against its own palette
-            if quals is not None:
-                palette = np.unique(np.asarray(quals))
-                if len(palette) > 16:
-                    palette = None
+            palettized = quals is not None and pk.qual_palette_size(quals) <= 16
             for s in range(0, n, batch_size):
                 e = min(s + batch_size, n)
                 cb = np.asarray(codes[s:e])
@@ -75,7 +72,7 @@ class DeviceBatches:
                     if e - s < batch_size:
                         qb = np.concatenate(
                             [qb, np.zeros((batch_size - (e - s), L), qb.dtype)])
-                    if palette is None:
+                    if not palettized:
                         db.qnib.append(None)
                         db.qpal.append(torch.from_numpy(np.array(qb)).to(dev))
                     else:

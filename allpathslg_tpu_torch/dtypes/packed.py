@@ -5,16 +5,34 @@ carries bases 16w..16w+15 of read i, base j in bits 2*(j%16)..+1;
 nmask[i,w] carries bases 32w..32w+31, bit j%32 set when code==4. Lossless
 for any [N, L] uint8 code matrix; bit-identical to the reference.
 
-The host-side functions are the reference's numpy code. On the device the
-uint32 words are int64 tensors holding the uint32 values (kmer/bits.py).
+The host packing (pack_codes, pack_quals, qual_palette_size) runs in
+native/pack_reads.cpp, one pass over each row, in a span upload.pack
+(counters reads and bytes_in); its output is the reference's numpy
+packing's, bit for bit. On the device the uint32 words are int64 tensors
+holding the uint32 values (kmer/bits.py).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from allpathslg_tpu_torch import trace
+from allpathslg_tpu_torch.native import build as nbuild
+
+
+def _rows(a: np.ndarray):
+    """uint8 `a` as rows the native packer walks: (a view whose rows each
+    hold their bytes contiguously, or a contiguous copy; its row stride)."""
+    if a.shape[1] > 1 and a.strides[1] != 1:
+        a = np.ascontiguousarray(a)
+    return a, a.strides[0]
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
 def pack_codes(codes: np.ndarray):
@@ -23,18 +41,15 @@ def pack_codes(codes: np.ndarray):
     width, so consecutive batches keep one shape."""
     codes = np.asarray(codes, np.uint8)
     n, L = codes.shape
-    Wb = (L + 15) // 16
-    Wn = (L + 31) // 32
-    cp = np.zeros((n, Wb * 16), np.uint32)
-    cp[:, :L] = codes & 3
-    sh = (np.arange(Wb * 16, dtype=np.uint32) % 16) * 2
-    words = np.bitwise_or.reduce(
-        (cp << sh).reshape(n, Wb, 16), axis=2).astype(np.uint32)
-    npad = np.zeros((n, Wn * 32), bool)
-    npad[:, :L] = codes == 4
-    shn = np.arange(Wn * 32, dtype=np.uint32) % 32
-    nmask = np.bitwise_or.reduce(
-        (npad.astype(np.uint32) << shn).reshape(n, Wn, 32), axis=2)
+    words = np.empty((n, (L + 15) // 16), np.uint32)
+    nmask = np.empty((n, (L + 31) // 32), np.uint32)
+    with trace.span("upload.pack") as sp:
+        sp.add("reads", n)
+        sp.add("bytes_in", n * L)
+        rows, stride = _rows(codes)
+        nbuild.pack_lib().pack_codes(
+            _ptr(rows, ctypes.c_uint8), n, L, stride,
+            _ptr(words, ctypes.c_uint32), _ptr(nmask, ctypes.c_uint32))
     return words, nmask, L
 
 
@@ -84,25 +99,37 @@ def unpack_codes_host(words: np.ndarray, nmask: np.ndarray, L: int):
     return np.where(isn != 0, np.uint8(4), base)
 
 
+def qual_palette_size(quals: np.ndarray) -> int:
+    """The number of distinct values in uint8 quals [N, L]."""
+    quals = np.asarray(quals, np.uint8)
+    n, L = quals.shape
+    rows, stride = _rows(quals)
+    palette = np.zeros(256, np.uint8)
+    return nbuild.pack_lib().qual_palette(
+        _ptr(rows, ctypes.c_uint8), n, L, stride,
+        _ptr(palette, ctypes.c_uint8))
+
+
 def pack_quals(quals: np.ndarray):
     """Host pack quals via a 4-bit palette (ref: feudal QualNibbleVec).
     Returns (nibbles [N, ceil(L/8)] uint32, palette [16] uint8, L), or
     (None, quals, L) raw fallback when >16 distinct values exist."""
     quals = np.asarray(quals, np.uint8)
     n, L = quals.shape
-    palette = np.unique(quals)
-    if len(palette) > 16:
-        return None, quals, L
-    pal16 = np.zeros(16, np.uint8)
-    pal16[: len(palette)] = palette
-    idx = np.searchsorted(palette, quals).astype(np.uint32)
-    Wq = (L + 7) // 8
-    ip = np.zeros((n, Wq * 8), np.uint32)
-    ip[:, :L] = idx
-    sh = (np.arange(Wq * 8, dtype=np.uint32) % 8) * 4
-    nib = np.bitwise_or.reduce(
-        (ip << sh).reshape(n, Wq, 8), axis=2).astype(np.uint32)
-    return nib, pal16, L
+    nib = np.empty((n, (L + 7) // 8), np.uint32)
+    palette = np.zeros(256, np.uint8)
+    with trace.span("upload.pack") as sp:
+        sp.add("reads", n)
+        sp.add("bytes_in", n * L)
+        lib = nbuild.pack_lib()
+        rows, stride = _rows(quals)
+        src = _ptr(rows, ctypes.c_uint8)
+        pal = _ptr(palette, ctypes.c_uint8)
+        k = lib.qual_palette(src, n, L, stride, pal)
+        if k > 16:
+            return None, quals, L
+        lib.pack_nibbles(src, n, L, stride, pal, k, _ptr(nib, ctypes.c_uint32))
+    return nib, palette[:16].copy(), L
 
 
 def device_codes(codes: np.ndarray, device) -> torch.Tensor:

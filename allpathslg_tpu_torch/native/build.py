@@ -1,15 +1,15 @@
 """Build and load the port's compiled libraries: the native host ones here
 (C++ through ctypes) and, through ops/cuda/nvcc.py, the CUDA kernels.
 
-`fastq_reader.cpp` and `radix_sort.cpp` (copies of the reference's) and
-`sam_reader.cpp` (the port's own) are each compiled with `g++ -O3
--march=native -shared -fPIC` at first use into `build/native/`
-(gitignored), under a name that carries a hash of the source and the
-flags: an edit rebuilds, and nothing is ever written into the package
-directory. The compile goes to a temporary name that carries the process
-and the thread, and is renamed into place. A failed build raises with the
-compiler's stderr; there is no fallback (the reference falls back to numpy
-when its library is missing; the port does not).
+`fastq_reader.cpp` and `radix_sort.cpp` (copies of the reference's),
+`sam_reader.cpp` and `pack_reads.cpp` (the port's own) are each compiled
+with `g++ -O3 -march=native -shared -fPIC` at first use into
+`build/native/` (gitignored), under a name that carries a hash of the
+source and the flags: an edit rebuilds, and nothing is ever written into
+the package directory. The compile goes to a temporary name that carries
+the process and the thread, and is renamed into place. A failed build
+raises with the compiler's stderr; there is no fallback (the reference
+falls back to numpy when its library is missing; the port does not).
 """
 
 from __future__ import annotations
@@ -113,6 +113,19 @@ def _bind_sam(lib):
     return lib
 
 
+def _bind_pack(lib):
+    """The read packer behind dtypes/packed.pack_codes and pack_quals."""
+    u8, u32 = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint32)
+    i64 = ctypes.c_int64
+    lib.pack_codes.restype = None
+    lib.pack_codes.argtypes = [u8, i64, i64, i64, u32, u32]
+    lib.qual_palette.restype = ctypes.c_int
+    lib.qual_palette.argtypes = [u8, i64, i64, i64, u8]
+    lib.pack_nibbles.restype = None
+    lib.pack_nibbles.argtypes = [u8, i64, i64, i64, u8, ctypes.c_int, u32]
+    return lib
+
+
 def _bind_radix(lib):
     """The host LSD radix sort, with the reference's argtypes."""
     lib.radix_sort_u64.restype = ctypes.c_int
@@ -125,6 +138,7 @@ def _bind_radix(lib):
 fastq_lib = Loader(build, "fastq_reader", _bind_fastq)
 sam_lib = Loader(build, "sam_reader", _bind_sam)
 radix_lib = Loader(build, "radix_sort", _bind_radix)
+pack_lib = Loader(build, "pack_reads", _bind_pack)
 
 
 # Below this many keys the reference sorts with numpy's stable argsort
