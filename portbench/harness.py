@@ -65,45 +65,87 @@ def cell_metrics(bench: dict, workload: str, trace: bool) -> list:
 # ---- inputs ---------------------------------------------------------------
 
 def set_seeds(seed: int, i: int) -> list:
-    """Four seeds for read set i of a run with `seed` (any whole number)."""
+    """Eight seeds for read set i of a run with `seed` (any whole number):
+    0 the genome, 1 and 2 the fragment and jump libraries, 3 the long
+    reads (+ 1: the control's strain); 4 the long jumps, 5 the second
+    haplotype, 6 the second haplotype's libraries (+ 0, 1, 2 in the
+    order frag, jump, long_jump), 7 the control's strain of the second
+    haplotype. The first four are those a draw of four gives, so a
+    configuration without the later keys draws what it always drew."""
     ss = np.random.SeedSequence([seed % (1 << 64), i])
-    return [int(x) for x in ss.generate_state(4, np.uint32)]
+    return [int(x) for x in ss.generate_state(8, np.uint32)]
+
+
+# the paired libraries a configuration may hold: (key, outward, seed word)
+PAIRED = (("frag", False, 1), ("jump", True, 2), ("long_jump", True, 4))
+JUMPS = ("jump", "long_jump")
+
+
+def concat_pairs(parts: list) -> dict:
+    """One paired library from its parts, in turn: the reads stacked, each
+    part's pairs offset by the reads before it."""
+    if len(parts) == 1:
+        return parts[0]
+    out = {key: np.concatenate([p[key] for p in parts])
+           for key in ("codes", "quals", "lengths")}
+    starts = np.cumsum([0] + [len(p["lengths"]) for p in parts[:-1]])
+    out["pairs"] = np.concatenate([p["pairs"] + s for p, s in
+                                   zip(parts, starts)]).astype(np.int32)
+    return out
 
 
 def make_read_set(cfg: dict, seed: int, i: int, genome_size: int = None,
                   snp_rate: float = 0.0):
     """Read set i of a run: a genome of the configuration's shape and its
-    libraries, every draw from (seed, i). With `snp_rate` (the control)
-    the reads come from a strain of the genome with that share of SNPs,
-    while "genome" stays the genome they are judged against."""
+    libraries, every draw from (seed, i). With `heterozygosity` a second
+    haplotype, the genome with that share of bases substituted (so both
+    share coordinates), and every paired library draws half its coverage
+    from each, haplotype A's reads first; "genome" is haplotype A and
+    "haplotypes" both. Long reads come with one haplotype only. With `snp_rate` (the control) the reads come from
+    a strain of each haplotype with that share of SNPs, while "genome"
+    and "haplotypes" stay what the reads are judged against. "insert"
+    holds each jump library's (insert, sd) for the judge."""
+    if cfg.get("long") and cfg.get("heterozygosity"):
+        raise ValueError("a configuration with long reads has one haplotype")
     s = set_seeds(seed, i)
     size = genome_size or cfg["genome_size"]
     genome = sim.repeat_genome(size, s[0], cfg["gc"], cfg["repeat_families"])
     out = {"genome": genome}
-    g = sim.mutate_genome(genome, snp_rate, s[3] + 1) if snp_rate else genome
-    for lib, outward, sd in (("frag", False, s[1]), ("jump", True, s[2])):
-        p = cfg[lib]
-        out[lib] = sim.simulate_paired_reads(
-            g, p["coverage"], p["read_len"], p["insert"], p["sd"],
+    haps = [genome]
+    if cfg.get("heterozygosity"):
+        haps.append(sim.mutate_genome(genome, cfg["heterozygosity"], s[5]))
+        out["haplotypes"] = haps
+    src = ([sim.mutate_genome(h, snp_rate, w) for h, w in
+            zip(haps, (s[3] + 1, s[7]))] if snp_rate else haps)
+    share = 1.0 / len(src)
+    for j, (lib, outward, w) in enumerate(PAIRED):
+        p = cfg.get(lib)
+        if not p:
+            continue
+        out[lib] = concat_pairs([sim.simulate_paired_reads(
+            g, p["coverage"] * share, p["read_len"], p["insert"], p["sd"],
             cfg["error_rate"], outward, sd)
+            for g, sd in zip(src, (s[w], s[6] + j))])
     if cfg.get("long"):
         p = cfg["long"]
         out["long"] = sim.simulate_long_reads(
-            g, p["coverage"], p["mean_len"], p["min_len"], p["error_rate"],
-            s[3])
+            src[0], p["coverage"], p["mean_len"], p["min_len"],
+            p["error_rate"], s[3])
+    out["insert"] = {lib: (cfg[lib]["insert"], cfg[lib]["sd"])
+                     for lib in JUMPS if cfg.get(lib)}
     return out
 
 
-def jump_artifact(cfg: dict, jump: dict) -> dict:
-    """jump_reads_orig's arrays for one library."""
-    return dict(jump, lib_id=np.zeros(len(jump["pairs"]), np.int32),
-                lib_sep=np.array([cfg["jump"]["insert"]], np.int32),
-                lib_sd=np.array([cfg["jump"]["sd"]], np.int32))
+def jump_artifact(cfg: dict, lib: str, reads: dict) -> dict:
+    """<lib>_reads_orig's arrays for one jump library."""
+    return dict(reads, lib_id=np.zeros(len(reads["pairs"]), np.int32),
+                lib_sep=np.array([cfg[lib]["insert"]], np.int32),
+                lib_sd=np.array([cfg[lib]["sd"]], np.int32))
 
 
 def write_read_set(cfg: dict, traffic: dict, rs: dict, d: Path):
     """Writes read set `rs` under `d` as the entry takes it: `d/files`
-    (FASTQ, SAM, sheets) for "assemble", else run-dir artifacts under
+    (FASTQ, SAMs, sheets) for "assemble", else run-dir artifacts under
     `d/artifacts`; genome_truth there too when the traffic gives one."""
     from allpathslg_tpu_torch.pipeline.rundir import RunDir
 
@@ -115,10 +157,15 @@ def write_read_set(cfg: dict, traffic: dict, rs: dict, d: Path):
         readfiles.write_sample_files(
             d / "files", rs["frag"], rs["jump"],
             (cfg["frag"]["insert"], cfg["frag"]["sd"]),
-            (cfg["jump"]["insert"], cfg["jump"]["sd"]))
+            (cfg["jump"]["insert"], cfg["jump"]["sd"]),
+            long_jump=rs.get("long_jump"),
+            long_jump_lib=rs["insert"].get("long_jump"))
     else:
         rd.save_arrays("frag_reads_orig", **rs["frag"])
-        rd.save_arrays("jump_reads_orig", **jump_artifact(cfg, rs["jump"]))
+        for lib in JUMPS:
+            if lib in rs:
+                rd.save_arrays(f"{lib}_reads_orig",
+                               **jump_artifact(cfg, lib, rs[lib]))
         if "long" in rs:
             rd.save_arrays("long_reads_orig", **rs["long"])
     if traffic["truth_genome"]:
@@ -197,10 +244,24 @@ def collect(rd, traffic: dict, rng) -> dict:
             art: {key: np.array(v) for key, v in
                   rd.load_arrays(art, mmap=True).items()
                   if key in ("codes", "quals", "lengths", "pairs")}
-            for art in ("frag_reads_orig", "jump_reads_orig")}
+            for art in ("frag_reads_orig", "jump_reads_orig",
+                        "long_jump_reads_orig") if rd.has(art)}
     u = rd.load_arrays("unibases")
     out["unibases"] = {key: np.asarray(u[key]) for key in ("bases",
                                                            "offsets")}
+    if traffic["entry"] != "contigs":
+        # each jump library as jump_ec and its alignment left it; None
+        # where the run dir holds no such library
+        out["jumps"] = {lib: None for lib in JUMPS}
+        for lib in JUMPS:
+            if rd.has(f"{lib}_reads_ec") and rd.has(f"{lib}_alignlets"):
+                e = rd.load_arrays(f"{lib}_reads_ec", mmap=True)
+                al = rd.load_arrays(f"{lib}_alignlets")
+                out["jumps"][lib] = {
+                    **{key: np.array(e[key]) for key in (
+                        "codes", "lengths", "pairs", "pair_ok")},
+                    **{key: np.asarray(al[key]) for key in (
+                        "contig", "anchor", "is_rc", "aligned")}}
     if rd.has("frag_alignlets"):
         al = rd.load_arrays("frag_alignlets")
         aligned = np.asarray(al["aligned"])
@@ -238,19 +299,22 @@ def check_samples(samples: list, read_sets: list) -> list:
                                              rs["frag"]["lengths"]),
                     "spectrum_jump0": ref.spectrum(rs["jump"]["codes"],
                                                    rs["jump"]["lengths"])}
-            g = rs["genome"]
-            gk, _, _ = ref.kmer_set(g, np.array([0, len(g)]))
-            cache[i] = (want, gk)
-        want, gk = cache[i]
+            haps = rs.get("haplotypes", [rs["genome"]])
+            cache[i] = {"want": want, "haplotypes": haps,
+                        "kmers": ref.haplotype_kmers(haps)}
+        c = cache[i]
         out, got = rec["out"], {}
         got["spectrum_diff"] = sum(
             int(np.abs(np.asarray(out["spectra"].get(key, 0)) - v).sum())
-            for key, v in want.items())
+            for key, v in c["want"].items())
         if "imported" in out:
-            got["reads_bad"] = sum(
-                ref.imported_pair_errors(out["imported"][art], rs[lib])
-                for art, lib in (("frag_reads_orig", "frag"),
-                                 ("jump_reads_orig", "jump")))
+            got["reads_bad"] = 0
+            for lib in ("frag",) + JUMPS:
+                if lib in rs:
+                    imp = out["imported"].get(f"{lib}_reads_orig")
+                    got["reads_bad"] += (
+                        len(rs[lib]["pairs"]) if imp is None
+                        else ref.imported_pair_errors(imp, rs[lib]))
         if "placements" in out:
             got["unplaced_pct"] = ref.unplaced_pct(
                 out["unplaced"]["n_reads"], out["unplaced"]["aligned"],
@@ -260,8 +324,20 @@ def check_samples(samples: list, read_sets: list) -> list:
                 p["codes"], p["lengths"], p["contig"], p["anchor"],
                 p["is_rc"], p["mismatches"], out["unibases"]["bases"],
                 out["unibases"]["offsets"])["bad"]
+        if "jumps" in out:
+            if "index" not in c:
+                c["index"] = ref.genome_index(c["haplotypes"])
+            u = out["unibases"]
+            diagonals = ref.unibase_diagonals(u["bases"], u["offsets"],
+                                              c["index"])
+            for lib, (insert, sd) in rs["insert"].items():
+                j = out["jumps"][lib]
+                n = len(rs[lib]["pairs"])
+                got[f"{lib}_pairs_lost_pct"] = 100.0 if j is None else \
+                    ref.jump_pairs_lost_pct(n, j, u, diagonals, insert, sd)
         got.update(ref.assembly_vs_genome(out["assembly"]["bases"],
-                                          out["assembly"]["offsets"], gk))
+                                          out["assembly"]["offsets"],
+                                          *c["kmers"]))
         numbers.append(got)
     return numbers
 

@@ -70,23 +70,31 @@ def write_pairs_sam(path, codes, quals, pairs, name: bytes):
             f.write(np.concatenate(recs, axis=1).tobytes())
 
 
-def write_sample_files(d: Path, frag: dict, jump: dict, frag_lib, jump_lib):
+def write_sample_files(d: Path, frag: dict, jump: dict, frag_lib, jump_lib,
+                       long_jump: dict = None, long_jump_lib=None):
     """Fragment pairs as mate files frag_1.fastq / frag_2.fastq, jump pairs
-    as jump.sam, and in_libs.csv / in_groups.csv naming them; frag_lib and
-    jump_lib are (insert, sd)."""
+    as jump.sam, long-jump pairs (if given) as long_jump.sam, and
+    in_libs.csv / in_groups.csv naming them; frag_lib, jump_lib and
+    long_jump_lib are (insert, sd)."""
     d.mkdir(parents=True, exist_ok=True)
     for mate in (0, 1):
         write_fastq(d / f"frag_{mate + 1}.fastq", frag["codes"],
                     frag["quals"], b"f", frag["pairs"][:, mate])
     write_pairs_sam(d / "jump.sam", jump["codes"], jump["quals"],
                     jump["pairs"], b"j")
-    (d / "in_libs.csv").write_text(
-        LIB_HEADER
-        + f"frag,bench,sim,fragment,1,{frag_lib[0]},{frag_lib[1]},,,"
-          "inward,,\n"
-        + f"jump,bench,sim,jumping,1,,,{jump_lib[0]},{jump_lib[1]},"
-          "outward,,\n")
-    (d / "in_groups.csv").write_text(
-        "group_name,library_name,file_name\n"
-        "frag,frag,frag_?.fastq\n"
-        "jump,jump,jump.sam\n")
+    libs = (LIB_HEADER
+            + f"frag,bench,sim,fragment,1,{frag_lib[0]},{frag_lib[1]},,,"
+              "inward,,\n"
+            + f"jump,bench,sim,jumping,1,,,{jump_lib[0]},{jump_lib[1]},"
+              "outward,,\n")
+    groups = ("group_name,library_name,file_name\n"
+              "frag,frag,frag_?.fastq\n"
+              "jump,jump,jump.sam\n")
+    if long_jump is not None:
+        write_pairs_sam(d / "long_jump.sam", long_jump["codes"],
+                        long_jump["quals"], long_jump["pairs"], b"l")
+        libs += (f"long_jump,bench,sim,long_jump,1,,,{long_jump_lib[0]},"
+                 f"{long_jump_lib[1]},outward,,\n")
+        groups += "long_jump,long_jump,long_jump.sam\n"
+    (d / "in_libs.csv").write_text(libs)
+    (d / "in_groups.csv").write_text(groups)

@@ -138,3 +138,124 @@ def test_unplaced_pct_counts_reads_the_aligner_left():
     # a read count that no fill of 60 pairs can give, or flags missing
     assert ref.unplaced_pct(100, ok, n_pairs=40) == 100.0
     assert ref.unplaced_pct(101, ok, n_pairs=60) == 100.0
+
+
+def jump_layout():
+    """A 40 kb genome whose [5000, 6500) repeats at [20000, 21500), and
+    three unibases cut from it: g[1000:15000] forward, g[15000:30000]
+    reverse-complemented, and the repeat itself."""
+    g = sim.random_genome(40_000, seed=21)
+    g[20_000:21_500] = g[5_000:6_500]
+    unis = [g[1_000:15_000], sim.revcomp(g[15_000:30_000]), g[5_000:6_500]]
+    offsets = np.zeros(4, np.int64)
+    np.cumsum([len(u) for u in unis], out=offsets[1:])
+    return g, np.concatenate(unis), offsets
+
+
+def test_unibase_diagonals_place_each_copy():
+    g, bases, offsets = jump_layout()
+    uni, shift, strand = ref.unibase_diagonals(
+        bases, offsets, ref.genome_index([g]))
+    got = sorted(zip(uni.tolist(), shift.tolist(), strand.tolist()))
+    assert got == [(0, 1_000, 1), (1, 29_999, -1), (2, 5_000, 1),
+                   (2, 20_000, 1)]
+
+
+# mates as (unibase, anchor, is_rc) with 100 bases cut from the unibase
+# there: a forward read on unibase 0 at anchor a lies forward at genome
+# 1000 + a; a forward read on unibase 1 at y lies reverse at genome
+# 29999 - y - 99 .. 29999 - y
+INSERT, SD = 3_500, 350
+PAIRS = {
+    "valid": ((0, 1_000, False), (0, 4_499, True)),          # 2000 .. 5499
+    "valid_across": ((0, 12_000, False), (1, 13_500, False)),  # 13000 .. 16499
+    "same_strand": ((0, 1_000, False), (0, 4_400, False)),
+    "span_3.9_sd": ((0, 1_000, False), (0, 4_499 + 1_365, True)),
+    "span_5_sd": ((0, 1_000, False), (0, 4_499 + 1_750, True)),
+    "repeat_copy": ((2, 100, False), (1, 6_400, False)),      # 20100 .. 23599
+    "unplaced_mate": ((0, 1_000, False), None),
+    # 14950 .. 18449, but the first mate runs 50 bases past its unibase
+    "off_the_unibase": ((0, 13_950, False), (1, 11_550, False)),
+    # 950 .. 4449, but the first mate starts 50 bases before its unibase
+    "before_the_unibase": ((0, -50, False), (0, 3_449, True)),
+    # "valid", but the second mate's bases are 11 % off the unibase's
+    "off_its_bases": ((0, 1_000, False), (0, 4_499, True)),
+    "not_pair_ok": ((0, 1_000, False), (0, 4_499, True)),
+}
+VALID = {"valid", "valid_across", "span_3.9_sd", "repeat_copy"}
+
+
+def jump_reads(g, bases, offsets):
+    """The library of PAIRS as jump_ec and its alignment leave it; a mate
+    that sticks out of its unibase reads the genome there."""
+    mates = [m for pair in PAIRS.values() for m in pair]
+    n, L = len(mates), 100
+    rng = np.random.default_rng(24)
+    codes = rng.integers(0, 4, (n, L)).astype(np.uint8)
+    for i, m in enumerate(mates):
+        if m is None:
+            continue
+        u, a, rc = m
+        lo = offsets[u] + (a - L + 1 if rc else a)
+        if offsets[u] <= lo and lo + L <= offsets[u + 1]:
+            seg = bases[lo:lo + L]
+            codes[i] = sim.revcomp(seg) if rc else seg
+        elif u == 0 and not rc:                  # unibase 0 is g[1000:]
+            codes[i] = g[1_000 + a:1_000 + a + L]
+    bad = 2 * list(PAIRS).index("off_its_bases") + 1
+    codes[bad, :11] = (codes[bad, :11] + 1) % 4
+    return {"codes": codes, "lengths": np.full(n, L, np.int32),
+            "pairs": np.arange(n).reshape(-1, 2),
+            "pair_ok": np.array([name != "not_pair_ok" for name in PAIRS]),
+            "contig": np.array([m[0] if m else 0 for m in mates]),
+            "anchor": np.array([m[1] if m else 0 for m in mates]),
+            "is_rc": np.array([m[2] if m else False for m in mates]),
+            "aligned": np.array([m is not None for m in mates])}
+
+
+def test_jump_pairs_lost_pct_judges_each_pair():
+    g, bases, offsets = jump_layout()
+    unibases = {"bases": bases, "offsets": offsets}
+    diagonals = ref.unibase_diagonals(bases, offsets, ref.genome_index([g]))
+    reads = jump_reads(g, bases, offsets)
+
+    def lost(keep):
+        sel = np.array([name in keep for name in PAIRS])
+        some = dict(reads, pairs=reads["pairs"][sel],
+                    pair_ok=reads["pair_ok"][sel])
+        return ref.jump_pairs_lost_pct(int(sel.sum()), some, unibases,
+                                       diagonals, INSERT, SD)
+
+    for name in PAIRS:
+        assert lost({name}) == (0.0 if name in VALID else 100.0), name
+    assert lost(set(PAIRS)) == 100.0 * (len(PAIRS) - len(VALID)) / len(
+        PAIRS)
+    # ten bases off of a hundred still place the read
+    bad = 2 * list(PAIRS).index("off_its_bases") + 1
+    reads["codes"][bad, 0] = (reads["codes"][bad, 0] + 3) % 4
+    assert lost({"off_its_bases"}) == 0.0
+    # a pair count other than the pairs handed over reads 100
+    assert ref.jump_pairs_lost_pct(len(PAIRS) + 1, reads, unibases,
+                                   diagonals, INSERT, SD) == 100.0
+
+
+def test_diploid_union_and_intersection():
+    a = sim.random_genome(20_000, seed=22)
+    b = sim.mutate_genome(a, 0.002, seed=23)
+    ka, kb = (ref.kmer_set(h, np.array([0, len(h)]))[0] for h in (a, b))
+    union, shared = ref.haplotype_kmers([a, b])
+    assert np.array_equal(union, np.union1d(ka, kb))
+    assert np.array_equal(shared, np.intersect1d(ka, kb))
+    assert len(shared) < len(ka) < len(union)
+    one = np.array([0, len(a)])
+    # either haplotype is no error against the union, and misses nothing
+    # the two share
+    for h in (a, b):
+        got = ref.assembly_vs_genome(h, one, union, shared)
+        assert got == {"asm_err_ppm": 0.0, "genome_miss_pct": 0.0}
+    # haplotype B judged against A alone has errors and misses
+    got = ref.assembly_vs_genome(b, one, ka)
+    assert got["asm_err_ppm"] > 10_000 and got["genome_miss_pct"] > 1
+    # a haploid genome's union and intersection are its own set
+    u1, s1 = ref.haplotype_kmers([a])
+    assert np.array_equal(u1, ka) and np.array_equal(s1, ka)

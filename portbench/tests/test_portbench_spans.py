@@ -43,11 +43,16 @@ def test_span_metrics_read_in_a_traced_sample(tiny, workload):
     listed = {m["name"] for m in harness.cell_metrics(bench, workload,
                                                       True)}
     spans = {n for n in listed if n.startswith(SPAN_READERS)}
-    assert len(spans) == (8 if workload == "rsph.assemble" else 3)
+    assert len(spans) == (11 if workload == "rsph.assemble" else 3)
     got = res["metrics"]
     for name in sorted(spans):
         assert got[name]["value"] > 0 and got[name]["unit"] == "s", name
     # the stage metrics stay; the device's need a card
     stages = {n for n in listed if n.startswith("stage_s.")}
     assert stages and stages <= set(got)
-    assert set(got) == spans | stages
+    # the jump library's counter, in the cell that runs jump_ec
+    counters = {n for n in listed if n == "jump_pairs_kept_pct"}
+    assert len(counters) == (workload == "rsph.assemble")
+    for name in counters:
+        assert 0 < got[name]["value"] <= 100 and got[name]["unit"] == "%"
+    assert set(got) == spans | stages | counters
